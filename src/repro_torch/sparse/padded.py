@@ -1,0 +1,342 @@
+"""Padded-ELL sparse layout, host side (numpy).
+
+The port's own copy of the reference's ``repro/sparse/padded.py`` layout
+code; the arrays it builds are bit-equal to the reference's.  A sparse
+rating matrix R (m x n, Nz nonzeros) is stored as three dense arrays::
+
+    idx  [m, K] int32   column index of each nonzero, rows padded to K
+    val  [m, K] float32 rating value, 0 in padding slots
+    cnt  [m]    int32   true nnz per row (n_{x_u} of the paper, used by the
+                        weighted-lambda regularizer)
+
+Padding slots carry ``idx = 0`` and ``val = 0`` and lie at positions
+>= cnt, which the kernels never read.  :class:`BinnedELL` groups rows
+into ~log-spaced degree bins (cuMF's degree binning) so each bin pads to
+its own, much tighter K.  Because padding slots are exact zeros,
+re-padding a row at any K >= its degree changes no f32 sum: binned and
+unbinned layouts are numerically identical.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class PaddedELL:
+    """Dense-padded sparse matrix, row-major semantics R[u, idx[u, k]] = val[u, k]."""
+
+    idx: np.ndarray  # [m, K] int32
+    val: np.ndarray  # [m, K] float32
+    cnt: np.ndarray  # [m]    int32
+    n_cols: int      # n — number of columns of the logical matrix
+
+    @property
+    def m(self) -> int:
+        return self.idx.shape[0]
+
+    @property
+    def K(self) -> int:
+        return self.idx.shape[1]
+
+    @property
+    def nnz(self) -> int:
+        return int(self.cnt.sum())
+
+    @property
+    def fill(self) -> float:
+        """Stored slots / true nonzeros (>= 1)."""
+        nnz = self.nnz
+        return float(self.padded_slots) / max(nnz, 1)
+
+    @property
+    def padded_slots(self) -> int:
+        """Stored slots (real + padding): the numerator of ``fill``."""
+        return int(self.idx.shape[0]) * int(self.K) if self.idx.ndim == 2 \
+            else int(np.prod(self.idx.shape[:-1])) * int(self.K)
+
+    def mask(self) -> np.ndarray:
+        """[m, K] float32 1.0 where a slot holds a real nonzero."""
+        k = np.arange(self.K, dtype=np.int32)[None, :]
+        return (k < self.cnt[:, None]).astype(np.float32)
+
+    def transpose_coo(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Return (rows, cols, vals) of R^T — used to build the update-Theta side."""
+        k = np.arange(self.K, dtype=np.int32)[None, :]
+        live = k < self.cnt[:, None]
+        rows = np.broadcast_to(np.arange(self.m, dtype=np.int64)[:, None], self.idx.shape)[live]
+        cols = self.idx[live].astype(np.int64)
+        vals = self.val[live]
+        return cols, rows, vals  # transposed: col becomes row
+
+
+def csr_from_coo(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
+                 m: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Sort COO by row; return (row_ptr, cols, vals) CSR triplet."""
+    order = np.argsort(rows, kind="stable")
+    rows, cols, vals = rows[order], cols[order], vals[order]
+    cnt = np.bincount(rows, minlength=m).astype(np.int64)
+    ptr = np.zeros(m + 1, dtype=np.int64)
+    np.cumsum(cnt, out=ptr[1:])
+    return ptr, cols.astype(np.int32), vals.astype(np.float32)
+
+
+def pad_csr(ptr: np.ndarray, cols: np.ndarray, vals: np.ndarray,
+            n_cols: int, k_multiple: int = 8, k_cap: int | None = None) -> PaddedELL:
+    """CSR -> PaddedELL, reference implementation (python row loop).
+
+    K = max row degree rounded up to ``k_multiple``.  ``k_cap`` optionally
+    truncates pathological rows (keeps the first k_cap ratings).  This is
+    the oracle :func:`pad_csr_fast` is tested against.
+    """
+    m = ptr.shape[0] - 1
+    cnt = (ptr[1:] - ptr[:-1]).astype(np.int32)
+    if k_cap is not None:
+        cnt = np.minimum(cnt, np.int32(k_cap))
+    kmax = int(cnt.max()) if m else 0
+    K = max(k_multiple, -(-kmax // k_multiple) * k_multiple)
+    idx = np.zeros((m, K), dtype=np.int32)
+    val = np.zeros((m, K), dtype=np.float32)
+    for u in range(m):  # host-side, one-time preprocessing
+        c = int(cnt[u])
+        lo = int(ptr[u])
+        idx[u, :c] = cols[lo:lo + c]
+        val[u, :c] = vals[lo:lo + c]
+    return PaddedELL(idx=idx, val=val, cnt=cnt, n_cols=n_cols)
+
+
+def pad_csr_fast(ptr: np.ndarray, cols: np.ndarray, vals: np.ndarray,
+                 n_cols: int, k_multiple: int = 8,
+                 k_cap: int | None = None) -> PaddedELL:
+    """Vectorized :func:`pad_csr` (no python loop) for large matrices;
+    bit-identical to it on every input, ``k_cap`` truncation included."""
+    m = ptr.shape[0] - 1
+    full = (ptr[1:] - ptr[:-1]).astype(np.int32)
+    cnt = np.minimum(full, np.int32(k_cap)) if k_cap is not None else full
+    kmax = int(cnt.max()) if m else 0
+    K = max(k_multiple, -(-kmax // k_multiple) * k_multiple)
+    # position of each nonzero within its row
+    pos = np.arange(len(cols), dtype=np.int64) - np.repeat(ptr[:-1], full)
+    rows = np.repeat(np.arange(m, dtype=np.int64), full)
+    if k_cap is not None:
+        keep = pos < cnt[rows]         # drop each row's truncated tail
+        pos, rows = pos[keep], rows[keep]
+        cols, vals = cols[keep], vals[keep]
+    idx = np.zeros((m, K), dtype=np.int32)
+    val = np.zeros((m, K), dtype=np.float32)
+    idx[rows, pos] = cols
+    val[rows, pos] = vals
+    return PaddedELL(idx=idx, val=val, cnt=cnt, n_cols=n_cols)
+
+
+def row_slice(ell: PaddedELL, start: int, stop: int) -> PaddedELL:
+    """Host-side contiguous row slice ``ell[start:stop]`` with K and
+    ``n_cols`` preserved.  The slice owns its memory (``.copy()``), so it
+    never aliases the parent."""
+    if not 0 <= start <= stop <= ell.m:
+        raise ValueError(f"row slice [{start}, {stop}) outside [0, {ell.m})")
+    return PaddedELL(
+        idx=ell.idx[start:stop].copy(),
+        val=ell.val[start:stop].copy(),
+        cnt=ell.cnt[start:stop].copy(),
+        n_cols=ell.n_cols,
+    )
+
+
+def pad_rows(ell: PaddedELL, m_to: int) -> PaddedELL:
+    """Append empty rows (cnt = 0, all slots masked) up to ``m_to`` rows;
+    padded rows contribute nothing and solve to x_u = 0 under the
+    empty-row diagonal fallback."""
+    if m_to < ell.m:
+        raise ValueError(f"cannot pad {ell.m} rows down to {m_to}")
+    extra = m_to - ell.m
+    if extra == 0:
+        return ell
+    return PaddedELL(
+        idx=np.pad(ell.idx, ((0, extra), (0, 0))),
+        val=np.pad(ell.val, ((0, extra), (0, 0))),
+        cnt=np.pad(ell.cnt, (0, extra)),
+        n_cols=ell.n_cols,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Degree-binned layout (cuMF §4.1 / Tan 1808.03843 memory-optimized batching)
+# ---------------------------------------------------------------------------
+
+def round_k(k: int, k_multiple: int = 8) -> int:
+    """Round a degree up to the lane multiple (min one lane)."""
+    return max(k_multiple, -(-int(k) // k_multiple) * k_multiple)
+
+
+def bin_caps(kmax: int, n_bins: int, k_multiple: int = 8) -> list[int]:
+    """Ascending ~log-spaced per-bin degree caps ending at ``kmax`` rounded.
+
+    Log spacing bounds each row's overshoot (K_bin / degree) by a constant
+    factor whatever the skew.  Duplicate rungs collapse, so the result may
+    hold fewer than ``n_bins`` caps on low-degree data.
+    """
+    top = round_k(kmax, k_multiple)
+    if n_bins <= 1 or top <= k_multiple:
+        return [top]
+    grid = np.exp(np.linspace(np.log(k_multiple), np.log(top), n_bins))
+    # clamp each rung to top: exp(log(top)) can land epsilon above top and
+    # ceil would then mint a phantom rung one lane past the real maximum
+    return sorted({min(round_k(int(np.ceil(g)), k_multiple), top)
+                   for g in grid})
+
+
+@dataclasses.dataclass
+class BinnedELL:
+    """Rows of one logical sparse matrix, grouped into degree bins.
+
+    ``bins[b]`` is a :class:`PaddedELL` holding the rows assigned to bin b,
+    padded to that bin's own K.  ``rows[b]`` maps bin-local row u back to
+    the original row index and is strictly ascending (stable grouping).
+    Factors are always kept in ORIGINAL row order; solvers scatter per-bin
+    results back through ``rows[b]``.
+    """
+
+    bins: Tuple[PaddedELL, ...]
+    rows: Tuple[np.ndarray, ...]   # per-bin original row indices, ascending
+    n_cols: int
+    m: int                         # original (unbinned) row count
+
+    @property
+    def n_bins(self) -> int:
+        return len(self.bins)
+
+    @property
+    def K_list(self) -> Tuple[int, ...]:
+        return tuple(b.K for b in self.bins)
+
+    @property
+    def nnz(self) -> int:
+        return sum(b.nnz for b in self.bins)
+
+    @property
+    def padded_slots(self) -> int:
+        return sum(b.padded_slots for b in self.bins)
+
+    @property
+    def fill(self) -> float:
+        """Stored slots / true nonzeros, summed over bins."""
+        return float(self.padded_slots) / max(self.nnz, 1)
+
+    @property
+    def perm(self) -> np.ndarray:
+        return np.concatenate([r for r in self.rows]) if self.rows \
+            else np.zeros(0, dtype=np.int64)
+
+    @property
+    def inv_perm(self) -> np.ndarray:
+        inv = np.empty(self.m, dtype=np.int64)
+        inv[self.perm] = np.arange(self.m, dtype=np.int64)
+        return inv
+
+    def bin_spans(self, start: int, stop: int) -> list[Tuple[int, int]]:
+        """Per-bin contiguous (lo, hi) bin-local spans covering original
+        rows ``[start, stop)`` — exact because each ``rows[b]`` ascends."""
+        return [(int(np.searchsorted(r, start)), int(np.searchsorted(r, stop)))
+                for r in self.rows]
+
+    def row_slice(self, start: int, stop: int) -> "BinnedELL":
+        """Bin-wise cut of original rows ``[start, stop)``, rebased to the
+        slice (empty bins are kept)."""
+        spans = self.bin_spans(start, stop)
+        return BinnedELL(
+            bins=tuple(row_slice(b, lo, hi)
+                       for b, (lo, hi) in zip(self.bins, spans)),
+            rows=tuple((r[lo:hi] - start).astype(np.int64)
+                       for r, (lo, hi) in zip(self.rows, spans)),
+            n_cols=self.n_cols, m=stop - start)
+
+    def to_padded(self) -> PaddedELL:
+        """Reassemble one uniform-K PaddedELL in original row order
+        (K = max over bins; re-padding adds only zero slots)."""
+        K = max(self.K_list) if self.bins else 8
+        idx = np.zeros((self.m, K), dtype=np.int32)
+        val = np.zeros((self.m, K), dtype=np.float32)
+        cnt = np.zeros(self.m, dtype=np.int32)
+        for b, r in zip(self.bins, self.rows):
+            idx[r, :b.K] = b.idx
+            val[r, :b.K] = b.val
+            cnt[r] = b.cnt
+        return PaddedELL(idx=idx, val=val, cnt=cnt, n_cols=self.n_cols)
+
+
+def bin_rows(ptr: np.ndarray, cols: np.ndarray, vals: np.ndarray,
+             n_cols: int, n_bins: int = 1, k_multiple: int = 8) -> BinnedELL:
+    """CSR -> :class:`BinnedELL`: stable-group rows into ~log-spaced degree
+    bins, each padded by :func:`pad_csr_fast` at its own tight K.
+
+    ``n_bins=1`` gives one bin equal to ``pad_csr_fast(ptr, cols, vals,
+    n_cols)``.  Empty bins are dropped; at least one bin always remains.
+    """
+    m = ptr.shape[0] - 1
+    cnt = (ptr[1:] - ptr[:-1]).astype(np.int64)
+    kmax = int(cnt.max()) if m else 0
+    caps = bin_caps(kmax, n_bins, k_multiple)
+    # row -> first cap covering its rounded degree (cnt=0 rows -> bin 0)
+    assign = np.searchsorted(np.asarray(caps, dtype=np.int64),
+                             np.maximum(cnt, 1), side="left")
+    bins: list[PaddedELL] = []
+    rows: list[np.ndarray] = []
+    for b in range(len(caps)):
+        rb = np.nonzero(assign == b)[0].astype(np.int64)
+        if rb.size == 0:
+            continue
+        cnt_b = cnt[rb]
+        # gather this bin's CSR entries (rows keep original relative order)
+        off = np.cumsum(cnt_b) - cnt_b
+        take = np.repeat(ptr[:-1][rb] - off, cnt_b) \
+            + np.arange(int(cnt_b.sum()), dtype=np.int64)
+        ptr_b = np.zeros(rb.size + 1, dtype=np.int64)
+        np.cumsum(cnt_b, out=ptr_b[1:])
+        bins.append(pad_csr_fast(ptr_b, cols[take], vals[take], n_cols,
+                                 k_multiple=k_multiple))
+        rows.append(rb)
+    if not bins:       # m == 0: keep one (empty) bin so consumers never
+        bins.append(pad_csr_fast(ptr, cols, vals, n_cols,   # see zero bins
+                                 k_multiple=k_multiple))
+        rows.append(np.zeros(0, dtype=np.int64))
+    return BinnedELL(bins=tuple(bins), rows=tuple(rows),
+                     n_cols=n_cols, m=m)
+
+
+def bin_padded(ell: PaddedELL, n_bins: int,
+               k_multiple: int = 8,
+               caps: "list[int] | None" = None) -> BinnedELL:
+    """Re-bin an existing PaddedELL without a round trip through COO: rows
+    are grouped by ``cnt`` and each bin is re-padded at its own tight K by
+    dropping all-padding columns.  ``caps`` overrides the ~log-spaced
+    ladder with explicit ascending degree caps."""
+    cnt = ell.cnt.astype(np.int64)
+    kmax = int(cnt.max()) if ell.m else 0
+    if caps is None:
+        caps = bin_caps(kmax, n_bins, k_multiple)
+    else:
+        caps = sorted(int(c) for c in caps)
+        if not caps or caps[-1] < kmax:
+            raise ValueError(f"caps {caps} do not cover max degree {kmax}")
+    assign = np.searchsorted(np.asarray(caps, dtype=np.int64),
+                             np.maximum(cnt, 1), side="left")
+    bins: list[PaddedELL] = []
+    rows: list[np.ndarray] = []
+    for b in range(len(caps)):
+        rb = np.nonzero(assign == b)[0].astype(np.int64)
+        if rb.size == 0:
+            continue
+        kb = min(round_k(int(cnt[rb].max()), k_multiple), ell.K)
+        bins.append(PaddedELL(idx=ell.idx[rb, :kb].copy(),
+                              val=ell.val[rb, :kb].copy(),
+                              cnt=ell.cnt[rb].copy(), n_cols=ell.n_cols))
+        rows.append(rb)
+    if not bins:       # m == 0
+        bins.append(PaddedELL(idx=ell.idx.copy(), val=ell.val.copy(),
+                              cnt=ell.cnt.copy(), n_cols=ell.n_cols))
+        rows.append(np.zeros(0, dtype=np.int64))
+    return BinnedELL(bins=tuple(bins), rows=tuple(rows),
+                     n_cols=ell.n_cols, m=ell.m)
