@@ -7,18 +7,32 @@ check it.
 Phases, in order; any failure stops the run with a non-zero exit:
 
 1. device: print the card's name and power limit; fp32 matmuls without TF32;
-2. build both CUDA kernels from ``src/repro_torch/kernels/csrc`` (in parallel);
-3. each kernel against its plain PyTorch version at f in {8, 100, 128},
-   with ragged and empty rows and ``diag_fallback`` on and off;
+2. build all four CUDA kernels from ``src/repro_torch/kernels/csrc`` (in
+   parallel) and print what ptxas said;
+3. the ALS kernels against their plain PyTorch versions at f in
+   {8, 100, 128}, with ragged and empty rows and ``diag_fallback`` on and off;
+3b. the SGD tile sweep and the Fig. 7 Hermitian against their plain
+   versions at f in {8, 100, 128} (empty rows, ragged cnt, a forced heavy
+   item collision, a ragged last bin), and two SGD calls bit-equal;
 4. netflix-mini (tests/test_convergence.py's problem, seed 2): two ALS
    iterations in kernel mode and in plain mode from one injected state;
+4b. netflix-mini SGD: two epochs in kernel and plain mode from one
+   injected state and set order; the hybrid (2 ALS iterations + 16 SGD
+   epochs, kernel mode) within 2% of 8 kernel-mode ALS iterations
+   (tests/test_sgd.py's criterion);
 5. quickstart size (examples/quickstart.py's problem), 8 iterations in
    kernel mode, judged by tests/test_convergence.py's relative criteria;
-6. the main path: ``als_train_binned`` on quarter-Netflix at full width
+6. the ALS path: ``als_train_binned`` on quarter-Netflix at full width
    (m=120047, n=17770, nnz=24.75M, f=100, lambda=0.05, 8 degree bins),
    3 iterations, with each kernel's launch count read around the run;
-7. each kernel timed at the main path's shapes (every bin of both sides
-   of one iteration) against its plain version and a library call.
+7. the ALS kernels timed at that path's shapes (every bin of both sides
+   of one iteration) against their plain versions and a library call;
+8. the SGD path: ``sgd_train`` (3 epochs, cold start, kernel mode) on
+   phase 6's ratings blocked g=4, with its launch count read around the
+   run; one stacked set call held against the plain version, and the
+   kernel timed per epoch against it;
+9. paper Fig. 7 on the card: ``herm_hbm_accum_cuda`` (tk=32) against
+   ``fused_herm_cuda`` on phase 6's largest user bin.
 
 The second-to-last line of output is a JSON ``kernels`` record; the last
 line is ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
@@ -44,6 +58,7 @@ PEAK_HBM_BYTES = 3.35e12
 HERM_ATOL, HERM_RTOL = 2e-4, 1e-4      # tests/test_kernels.py:44
 SOLVE_TOL = 5e-4                       # tests/test_kernels.py:77
 TRAJ_TOL = 3e-3                        # tests/test_convergence.py:80
+SGD_TOL = 1e-5                         # tests/test_sgd.py:97, :285
 PLAIN_CHUNK_ELEMS = 1 << 28            # gathered floats per plain-version chunk
 
 
@@ -92,7 +107,11 @@ def main() -> int:
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import ref as kref
     from repro_torch.kernels.batch_solve import batch_solve_cuda, batch_solve_plain
-    from repro_torch.kernels.hermitian import fused_herm_cuda, fused_herm_plain
+    from repro_torch.kernels.hermitian import (fused_herm_cuda, fused_herm_plain,
+                                               herm_hbm_accum_cuda, herm_hbm_accum_plain)
+    from repro_torch.kernels.sgd_update import sgd_tile_cuda, sgd_tile_plain
+    from repro_torch.sgd import blocking, hybrid
+    from repro_torch.sgd import train as sgd
     from repro_torch.sparse import synth
 
     dev = torch.device("cuda")
@@ -161,16 +180,56 @@ def main() -> int:
             f" cholesky_ex+cholesky_solve {cuda_ms(torch, lambda: torch.cholesky_solve(B[..., None], torch.linalg.cholesky_ex(A)[0])):.3f}")
         del g, gm
 
-    def reset_counts():
-        fused_herm_cuda.launches = 0
-        batch_solve_cuda.launches = 0
+    # -- 3b. SGD sweep and Fig. 7 Hermitian vs plain, small shapes -----------------
+    for f in (8, 100, 128):
+        mb, nb, K = 1000, 300, 40
+        x = (torch.rand(mb, f, generator=gen) * 0.3).to(dev)
+        th = (torch.rand(nb, f, generator=gen) * 0.3).to(dev)
+        idx = torch.randint(0, nb, (mb, K), generator=gen, dtype=torch.int32)
+        heavy = mb * 3 // 4
+        idx[:heavy, 1] = 7                        # 750 rows hit item 7 in slot 1
+        cnt = torch.randint(0, K + 1, (mb,), generator=gen, dtype=torch.int32)
+        cnt[heavy:][torch.rand(mb - heavy, generator=gen) < 0.2] = 0
+        cnt[:heavy] = torch.clamp(cnt[:heavy], min=2)
+        val = torch.rand(mb, K, generator=gen) * 4 + 1
+        idx, cnt, val = idx.to(dev), cnt.to(dev), val.to(dev)
+        x1, t1 = sgd_tile_cuda(x, th, idx, val, cnt, 0.05, 0.05)
+        x2, t2 = sgd_tile_cuda(x, th, idx, val, cnt, 0.05, 0.05)
+        x0, t0_ = sgd_tile_plain(x, th, idx, val, cnt, 0.05, 0.05)
+        log(f"sgd_tile f={f}: max|dx|={(x1 - x0).abs().max().item():.3g} "
+            f"max|dtheta|={(t1 - t0_).abs().max().item():.3g}, rerun bit-equal "
+            f"{torch.equal(x1, x2) and torch.equal(t1, t2)}")
+        check(torch.allclose(x1, x0, atol=SGD_TOL, rtol=SGD_TOL)
+              and torch.allclose(t1, t0_, atol=SGD_TOL, rtol=SGD_TOL),
+              f"sgd_tile disagrees with its plain version at f={f}")
+        check(torch.equal(x1, x2) and torch.equal(t1, t2),
+              f"two sgd_tile calls on the same inputs differ at f={f}")
+        m, n, K = 257, 700, 300                   # 300 % 32: a ragged last bin
+        theta = torch.randn(n, f, generator=gen).to(dev)
+        idx = torch.randint(0, n, (m, K), generator=gen, dtype=torch.int32).to(dev)
+        cnt = torch.randint(0, K + 1, (m,), generator=gen, dtype=torch.int32).to(dev)
+        val = torch.randn(m, K, generator=gen).to(dev) * kref.mask_from_cnt(cnt, K)
+        diag = torch.where(cnt > 0, 0.05 * cnt.float(), torch.ones(m, device=dev))
+        A1, B1 = herm_hbm_accum_cuda(theta, idx, val, cnt, diag, tk=32)
+        A0, B0 = herm_hbm_accum_plain(theta, idx, val, cnt, diag, tk=32)
+        log(f"herm_hbm_accum f={f}: max|dA|={(A1 - A0).abs().max().item():.3g} "
+            f"max|dB|={(B1 - B0).abs().max().item():.3g}")
+        check(torch.allclose(A1, A0, atol=HERM_ATOL, rtol=HERM_RTOL)
+              and torch.allclose(B1, B0, atol=HERM_ATOL, rtol=HERM_RTOL),
+              f"herm_hbm_accum disagrees with its plain version at f={f}")
 
-    def read_counts(phase: str) -> dict:
-        counts = {"fused_herm": fused_herm_cuda.launches,
-                  "batch_solve": batch_solve_cuda.launches}
+    wrappers = {"fused_herm": fused_herm_cuda, "batch_solve": batch_solve_cuda,
+                "sgd_tile": sgd_tile_cuda, "herm_hbm_accum": herm_hbm_accum_cuda}
+
+    def reset_counts():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def read_counts(phase: str, path=("fused_herm", "batch_solve")) -> dict:
+        counts = {name: w.launches for name, w in wrappers.items()}
         log(f"{phase} launches: {counts}")
-        for name, c in counts.items():
-            check(c > 0, f"{phase}: kernel {name} was never launched")
+        for name in path:
+            check(counts[name] > 0, f"{phase}: kernel {name} was never launched")
         return counts
 
     def triplet(ell):
@@ -178,7 +237,7 @@ def main() -> int:
 
     # -- 4. netflix-mini trajectory, kernel vs plain -------------------------------
     spec = synth.SynthSpec("netflix-mini", m=768, n=160, nnz=40_000, f=8, lam=0.05)
-    r, rt, _, _ = synth.make_synthetic_ratings(spec, seed=2, noise=0.1)
+    r, rt, rte, _ = synth.make_synthetic_ratings(spec, seed=2, noise=0.1)
     rng = np.random.default_rng(2)
     x_init = rng.uniform(0.0, 0.3, (r.m, spec.f))
     t_init = rng.uniform(0.0, 0.3, (rt.m, spec.f))
@@ -200,6 +259,46 @@ def main() -> int:
           and torch.allclose(states["kernel"].theta, states["ref"].theta,
                              atol=TRAJ_TOL, rtol=TRAJ_TOL),
           "netflix-mini trajectory: kernel and plain modes disagree")
+
+    # -- 4b. netflix-mini SGD and hybrid ------------------------------------------------
+    grid = blocking.block_ell(r, g=4)
+    x_init = rng.uniform(0.0, 0.3, (grid.g * grid.mb, spec.f))
+    t_init = rng.uniform(0.0, 0.3, (grid.g * grid.nb, spec.f))
+    gt = sgd.grid_triplet(grid, dev)
+    states = {}
+    for mode in ("ref", "kernel"):
+        scfg = sgd.SgdConfig(f=spec.f, lam=spec.lam, lr=0.1, epochs=2, mode=mode, seed=3)
+        st = sgd.sgd_state_from_numpy(x_init, t_init, device=dev)
+        reset_counts()
+        for ep in range(2):
+            st = sgd.sgd_epoch(st, gt, grid, scfg, sgd.epoch_lr(scfg, ep),
+                               set_order=sgd.epoch_set_order(scfg.seed, ep, grid.g))
+        torch.cuda.synchronize()
+        if mode == "kernel":
+            read_counts("netflix-mini SGD", ("sgd_tile",))
+        states[mode] = st
+    dx = (states["kernel"].x - states["ref"].x).abs().max().item()
+    dt = (states["kernel"].theta - states["ref"].theta).abs().max().item()
+    log(f"netflix-mini 2 SGD epochs kernel vs plain: max|dx|={dx:.3g} max|dtheta|={dt:.3g}")
+    check(torch.allclose(states["kernel"].x, states["ref"].x, atol=SGD_TOL, rtol=SGD_TOL)
+          and torch.allclose(states["kernel"].theta, states["ref"].theta,
+                             atol=SGD_TOL, rtol=SGD_TOL),
+          "netflix-mini SGD epochs: kernel and plain modes disagree")
+    test = triplet(rte)
+    _, als_hist = als.als_train(triplet(r), triplet(rt), r.m, rt.m,
+                                als.AlsConfig(f=spec.f, lam=spec.lam, iters=8), test=test)
+    reset_counts()
+    _, hyb_hist = hybrid.hybrid_train(
+        triplet(r), triplet(rt), grid, als.AlsConfig(f=spec.f, lam=spec.lam, iters=2),
+        sgd.SgdConfig(f=spec.f, lam=spec.lam, lr=0.12, epochs=16, schedule="cosine", seed=1),
+        test=test)
+    torch.cuda.synchronize()
+    read_counts("netflix-mini hybrid", ("fused_herm", "batch_solve", "sgd_tile"))
+    als_rmse, hyb_rmse = als_hist[-1]["test_rmse"], hyb_hist[-1]["test_rmse"]
+    log(f"netflix-mini test RMSE: hybrid {hyb_rmse:.4f} (phases "
+        f"{[h['phase'] for h in hyb_hist].count('als')} als + "
+        f"{[h['phase'] for h in hyb_hist].count('sgd')} sgd), ALS {als_rmse:.4f}")
+    check(hyb_rmse <= als_rmse * 1.02, f"hybrid test RMSE {hyb_rmse} not within 2% of ALS {als_rmse}")
 
     # -- 5. quickstart size ---------------------------------------------------------
     spec = synth.SynthSpec("netflix-quickstart", m=2048, n=512, nnz=150_000,
@@ -339,6 +438,145 @@ def main() -> int:
          "ms": tot["solve_ms"], "plain_ms": tot["solve_plain_ms"], "bound_ms": sb,
          "bound_by": sb_by, "library_ms": tot["solve_lib_ms"]},
     ]
+
+    # -- 8. SGD path: quarter-Netflix blocked g=4, 3 epochs --------------------------
+    t0 = time.perf_counter()
+    r_full = rb.to_padded()
+    grid = blocking.block_ell(r_full, g=4)
+    g, mb, nb, K = grid.g, grid.mb, grid.nb, grid.K
+    log(f"SGD grid build: {time.perf_counter() - t0:.1f} s; g {g} mb {mb} nb {nb} K {K} "
+        f"fill {grid.fill:.3f} nnz {grid.nnz}")
+    train_eval = triplet(r_full)
+    scfg = sgd.SgdConfig(f=f, lam=spec.lam, epochs=3)
+    check(scfg.mode == "kernel", f"default SGD mode on the card is {scfg.mode}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    marks = [torch.cuda.Event(enable_timing=True)]
+    walls = [time.perf_counter()]
+    per_epoch = []            # (peak bytes, sgd_tile calls) after each epoch
+
+    def on_epoch(state, rec):
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter())
+        per_epoch.append((torch.cuda.max_memory_allocated(), sgd_tile_cuda.launches))
+        torch.cuda.reset_peak_memory_stats()
+
+    reset_counts()
+    marks[0].record()
+    sstate, shist = sgd.sgd_train(grid, scfg, test=test, train_eval=train_eval,
+                                  callback=on_epoch)
+    torch.cuda.synchronize()
+    counts["sgd_tile"] = read_counts("quarter-Netflix SGD", ("sgd_tile",))["sgd_tile"]
+    epoch_ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(scfg.epochs)]
+    eval_ms = cuda_ms(torch, lambda: [float(als.rmse_padded(*sgd.eval_factors(sstate, grid), *t))
+                                      for t in (test, train_eval)])
+    calls = [0] + [c for _, c in per_epoch]
+    for h, ms, w0, w1, (peak, _), c0, c1 in zip(shist, epoch_ms, walls, walls[1:],
+                                                per_epoch, calls, calls[1:]):
+        log(f"  epoch {h['epoch']} (lr {h['lr']:.5g}): {ms:.1f} ms on the card "
+            f"({w1 - w0:.3f} s wall) train RMSE {h['train_rmse']:.4f} "
+            f"test RMSE {h['test_rmse']:.4f}, peak device memory "
+            f"{peak / 2**30:.2f} GiB ({peak} B), {c1 - c0} sgd_tile calls")
+    log(f"  (each epoch includes its RMSE evaluation, {eval_ms:.1f} ms on the card; "
+        f"the first also uploads the grid)")
+    train = [h["train_rmse"] for h in shist]
+    check(all(np.isfinite(v) for h in shist for v in h.values()), f"non-finite RMSE: {shist}")
+    check(bool(torch.isfinite(sstate.x).all()) and bool(torch.isfinite(sstate.theta).all()),
+          "non-finite SGD factors")
+    check(all(b < a for a, b in zip(train, train[1:])), f"SGD train RMSE did not fall: {train}")
+
+    # one epoch's stacked set calls at the trained factors, kernel vs plain
+    idx, val, cnt = sgd.grid_triplet(grid, dev)
+    ar = torch.arange(g, device=dev)
+    offs = (torch.arange(g, dtype=torch.int32, device=dev) * nb)[:, None, None]
+    tb = sstate.theta.reshape(g, nb, f)
+    lr0 = sgd.epoch_lr(scfg, 0)
+    sets, sgd_ops, sgd_bytes, err["sgd"] = [], 0.0, 0.0, 0.0
+    for s_ in range(g):
+        j = (ar + s_) % g
+        sets.append((sstate.x, tb[j].reshape(g * nb, f),
+                     (idx[ar, j] + offs).reshape(g * mb, K), val[ar, j].reshape(g * mb, K),
+                     cnt[ar, j].reshape(g * mb)))
+        live = int(sets[-1][4].sum())
+        sgd_ops += 6 * f * live
+        sgd_bytes += 2 * sstate.x.numel() * 4 + 2 * tb.numel() * 4 + live * 8 + g * mb * 4
+    for s_, a in enumerate(sets):
+        x1, t1 = sgd_tile_cuda(*a, lr0, spec.lam)
+        x0, t0_ = sgd_tile_plain(*a, lr0, spec.lam)
+        e = max((x1 - x0).abs().max().item(), (t1 - t0_).abs().max().item())
+        log(f"  set {s_}: {int(a[4].sum())} live ratings, kernel vs plain max abs err {e:.3g}")
+        check(torch.allclose(x1, x0, atol=SGD_TOL, rtol=SGD_TOL)
+              and torch.allclose(t1, t0_, atol=SGD_TOL, rtol=SGD_TOL),
+              f"sgd_tile disagrees with its plain version on set {s_} at full width")
+        err["sgd"] = max(err["sgd"], e)
+        del x1, t1, x0, t0_
+    sgd_ms = cuda_ms(torch, lambda: [sgd_tile_cuda(*a, lr0, spec.lam) for a in sets])
+    sgd_plain_ms = cuda_ms(torch, lambda: [sgd_tile_plain(*a, lr0, spec.lam) for a in sets])
+    gb, gb_by = bound(sgd_ops, sgd_bytes)
+    log(f"per SGD epoch at quarter-Netflix: sgd_tile {sgd_ms:.2f} ms ({g} calls, "
+        f"{2 * K * g} CUDA launches; plain {sgd_plain_ms:.2f}, bound {gb:.3f} by {gb_by}); "
+        f"no single PyTorch call computes the slot loop, so no library time")
+    kernels.append(
+        {"name": "sgd_tile", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/sgd_update.cu",
+         "replaces": "src/repro/kernels/sgd_update.py:81",
+         "launches": counts["sgd_tile"], "max_abs_err": err["sgd"],
+         "ms": sgd_ms, "plain_ms": sgd_plain_ms, "bound_ms": gb,
+         "bound_by": gb_by, "library_ms": None})
+    del sets, idx, val, cnt, train_eval, r_full
+
+    # -- 9. Fig. 7: device-memory vs register accumulator, largest user bin ----------
+    b = max(rb.bins, key=lambda e: e.m)
+    idx, val, cnt = triplet(b)
+    diag = torch.where(cnt > 0, spec.lam * cnt.float(), torch.ones_like(cnt, dtype=torch.float32))
+    reset_counts()
+    A, B = herm_hbm_accum_cuda(state.theta, idx, val, cnt, diag, tk=32)
+    torch.cuda.synchronize()
+    counts["herm_hbm_accum"] = read_counts("Fig. 7", ("herm_hbm_accum",))["herm_hbm_accum"]
+    A1, B1 = fused_herm_cuda(state.theta, idx, val, cnt, diag)
+    ea, eb = (A - A1).abs().max().item(), (B - B1).abs().max().item()
+    log(f"Fig. 7 bin K={b.K}, {b.m} rows, {b.nnz} ratings: herm_hbm_accum vs fused_herm "
+        f"max|dA|={ea:.3g} max|dB|={eb:.3g}")
+    check(torch.allclose(A, A1, atol=HERM_ATOL, rtol=HERM_RTOL)
+          and torch.allclose(B, B1, atol=HERM_ATOL, rtol=HERM_RTOL),
+          "herm_hbm_accum disagrees with fused_herm")
+    del A1, B1
+    step = max(1, PLAIN_CHUNK_ELEMS // (b.K * f))
+    chunks = [slice(lo, lo + step) for lo in range(0, b.m, step)]
+    err["hbm"], hbm_plain_ms, hbm_lib_ms = 0.0, 0.0, 0.0
+    for sl in chunks:
+        A0, B0 = herm_hbm_accum_plain(state.theta, idx[sl], val[sl], cnt[sl], diag[sl], tk=32)
+        check(torch.allclose(A[sl], A0, atol=HERM_ATOL, rtol=HERM_RTOL)
+              and torch.allclose(B[sl], B0, atol=HERM_ATOL, rtol=HERM_RTOL),
+              "herm_hbm_accum disagrees with its plain version")
+        err["hbm"] = max(err["hbm"], (A[sl] - A0).abs().max().item(),
+                         (B[sl] - B0).abs().max().item())
+        del A0, B0
+        hbm_plain_ms += cuda_ms(torch, lambda sl=sl: herm_hbm_accum_plain(
+            state.theta, idx[sl], val[sl], cnt[sl], diag[sl], tk=32))
+        g_ = state.theta[idx[sl].long()]
+        gm = g_ * kref.mask_from_cnt(cnt[sl], b.K)[..., None]
+        hbm_lib_ms += cuda_ms(torch, lambda: torch.bmm(gm.transpose(1, 2), g_))
+        del g_, gm
+    del A, B
+    hbm_ms = cuda_ms(torch, lambda: herm_hbm_accum_cuda(state.theta, idx, val, cnt, diag, tk=32))
+    reg_ms = cuda_ms(torch, lambda: fused_herm_cuda(state.theta, idx, val, cnt, diag))
+    hb9, hb9_by = bound(b.nnz * (f * (f + 1) + 2 * f),
+                        state.theta.numel() * 4 + b.nnz * 8 + b.m * 8 + b.m * (f * f + f) * 4)
+    log(f"Fig. 7 on this card: accumulator in device memory (tk=32, "
+        f"{-(-b.K // 32)} bins) {hbm_ms:.2f} ms, in registers (fused_herm) {reg_ms:.2f} ms: "
+        f"{hbm_ms / reg_ms:.2f}x (the paper reports 2.5x); plain {hbm_plain_ms:.2f} ms, "
+        f"bmm {hbm_lib_ms:.2f} ms, bound {hb9:.2f} ms by {hb9_by}")
+    kernels.append(
+        {"name": "herm_hbm_accum", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/herm_hbm_accum.cu",
+         "replaces": "src/repro/kernels/hermitian.py:140",
+         "launches": counts["herm_hbm_accum"], "max_abs_err": err["hbm"],
+         "ms": hbm_ms, "plain_ms": hbm_plain_ms, "bound_ms": hb9,
+         "bound_by": hb9_by, "library_ms": hbm_lib_ms})
+
     log(smi.splitlines()[0])
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,7 +8,12 @@ each counterpart is easy to find:
 - ``sparse``           padded-ELL layouts and synthetic ratings (numpy);
 - ``kernels``          plain torch versions, the hand-written CUDA kernels
                        (``csrc/``), their ctypes wrappers and ``ops``;
-- ``core``             the objective and the in-core MO-ALS driver.
+- ``core``             the objective and the in-core MO-ALS driver;
+- ``sgd``              CuMF_SGD blocking, the batch-Hogwild epoch driver
+                       and the ALS->SGD hybrid;
+- ``training``         the learning-rate schedule;
+- ``checkpoint``       the checkpoint store and manager (the reference's
+                       on-disk layout).
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 without a GPU they raise instead of falling back.

@@ -1,10 +1,11 @@
 """Builds the CUDA sources under ``kernels/csrc/`` at first use.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
-``nvcc`` into its own shared library, loaded with :mod:`ctypes`: no
-PyTorch headers and no pybind11 bindings to compile.  Libraries go to
-``kernels/_build/`` (listed in ``.gitignore``), named by a hash of the
-source and flags, so an edited source is rebuilt and an unchanged one is
+``nvcc`` (with the shared ``csrc/*.cuh`` headers it includes) into its
+own shared library, loaded with :mod:`ctypes`: no PyTorch headers and no
+pybind11 bindings to compile.  Libraries go to ``kernels/_build/``
+(listed in ``.gitignore``), named by a hash of the source, the headers
+and the flags, so an edited source is rebuilt and an unchanged one is
 reused.  :func:`build` compiles several sources in parallel, one ``nvcc``
 each.  A failed build raises; nothing falls back.
 
@@ -22,7 +23,7 @@ from typing import Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("hermitian", "batch_solve")
+KERNELS = ("hermitian", "batch_solve", "sgd_update", "herm_hbm_accum")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,8 +46,9 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` lives for its current source."""
-    src = (CSRC / f"{name}.cu").read_bytes()
+    """Where the library of ``csrc/<name>.cu`` lives for its current source
+    and the shared headers (``csrc/*.cuh``) it may include."""
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

@@ -1,14 +1,20 @@
-"""Fused Hermitian: wrapper of the CUDA kernel ``csrc/hermitian.cu``.
+"""Hermitians: wrappers of the CUDA kernels ``csrc/hermitian.cu`` and
+``csrc/herm_hbm_accum.cu``.
 
-Replaces the reference's Pallas kernel ``repro/kernels/hermitian.py``
-``fused_herm_pallas`` and the ``theta[idx]`` gather in front of it: the
-kernel gathers the rated theta rows itself, so the ``[m, K, f]`` tensor is
-never built on the card.  What bounds it and how it is laid out is noted
-in the CUDA source.
+``fused_herm_cuda`` replaces the reference's Pallas kernel
+``repro/kernels/hermitian.py`` ``fused_herm_pallas`` and the
+``theta[idx]`` gather in front of it: the kernel gathers the rated theta
+rows itself, so the ``[m, K, f]`` tensor is never built on the card.
 
-``fused_herm_cuda`` launches the kernel for tensors on the card and runs
-:func:`fused_herm_plain` for tensors on the CPU; ``fused_herm_cuda.launches``
-counts the kernel launches.
+``herm_hbm_accum_cuda`` replaces the reference's ``herm_hbm_accum``, the
+paper's Fig. 7 ablation: the same A and B, but one launch per bin of
+``tk`` slots, each writing its partial to device memory, added into the
+running sum between launches.  It is never on the ALS main path.
+
+What bounds each kernel and how it is laid out is noted in its CUDA
+source.  Each ``*_cuda`` wrapper launches its kernel for tensors on the
+card and runs its ``*_plain`` version for tensors on the CPU; its
+``launches`` attribute counts the kernel launches.
 """
 from __future__ import annotations
 
@@ -27,6 +33,14 @@ MAX_F = 128
 def _launcher():
     fn = build.load("hermitian").fused_herm_launch
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bin_launcher():
+    fn = build.load("herm_hbm_accum").herm_bin_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -86,3 +100,63 @@ def fused_herm_cuda(
 
 
 fused_herm_cuda.launches = 0
+
+
+def herm_hbm_accum_plain(theta, idx, val, cnt, diag, *, tk: int):
+    """Plain PyTorch version: :func:`kref.herm_ref` on each bin of ``tk``
+    slots of the gather, summed, then the diagonal."""
+    m, K = idx.shape
+    f = theta.shape[1]
+    mask = kref.mask_from_cnt(cnt, K, theta.dtype)
+    zero = torch.zeros(m, dtype=theta.dtype, device=theta.device)
+    A = torch.zeros((m, f, f), dtype=theta.dtype, device=theta.device)
+    B = torch.zeros((m, f), dtype=theta.dtype, device=theta.device)
+    for k0 in range(0, K, tk):
+        bin_ = slice(k0, k0 + tk)
+        dA, dB = kref.herm_ref(theta[idx[:, bin_].long()], val[:, bin_], mask[:, bin_], zero)
+        A, B = A + dA, B + dB
+    return A + diag[:, None, None] * torch.eye(f, dtype=A.dtype, device=A.device), B
+
+
+def herm_hbm_accum_cuda(
+    theta: torch.Tensor,   # [n, f] float32, the fixed factor
+    idx: torch.Tensor,     # [m, K] int32 padded column indices
+    val: torch.Tensor,     # [m, K] float32 ratings
+    cnt: torch.Tensor,     # [m]    int32 true nnz per row
+    diag: torch.Tensor,    # [m]    float32 diagonal added to A_u
+    *,
+    tk: int,               # slots per bin; the last bin may be short
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The A, B of :func:`fused_herm_cuda`, accumulated in device memory
+    bin by bin (paper Fig. 7, "without registers")."""
+    _check(theta, idx, val, cnt, diag)
+    if tk <= 0:
+        raise ValueError(f"tk={tk} must be positive")
+    if theta.device.type == "cpu":
+        return herm_hbm_accum_plain(theta, idx, val, cnt, diag, tk=tk)
+    m, K = idx.shape
+    n, f = theta.shape
+    A = torch.zeros((m, f, f), dtype=torch.float32, device=theta.device)
+    B = torch.zeros((m, f), dtype=torch.float32, device=theta.device)
+    if m == 0:
+        return A, B
+    theta, idx, val, cnt, diag = (t.contiguous() for t in (theta, idx, val, cnt, diag))
+    dA = torch.empty_like(A)
+    dB = torch.empty_like(B)
+    stream = torch.cuda.current_stream(theta.device).cuda_stream
+    for k0 in range(0, K, tk):
+        k1 = min(k0 + tk, K)
+        rc = _bin_launcher()(theta.data_ptr(), idx.data_ptr(), val.data_ptr(),
+                             cnt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+                             m, K, f, n, k0, k1, theta.device.index or 0, stream)
+        if rc != 0:
+            raise RuntimeError(f"herm_hbm_accum kernel launch failed: cudaError {rc} "
+                               f"(m={m}, K={K}, f={f}, n={n}, bin [{k0}, {k1}))")
+        herm_hbm_accum_cuda.launches += 1
+        A += dA          # the round trip through device memory per bin
+        B += dB
+    A.diagonal(dim1=1, dim2=2).add_(diag[:, None])
+    return A, B
+
+
+herm_hbm_accum_cuda.launches = 0

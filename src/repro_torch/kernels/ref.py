@@ -4,7 +4,8 @@
 These define correctness: the CPU tests compare them with the JAX
 package, and ``chip_smoke.py`` compares each CUDA kernel with them on the
 card.  They are also what the kernel wrappers run for tensors on the CPU.
-Library calls (``einsum``, ``torch.linalg``) are allowed here and only here.
+Library calls (``einsum``, ``torch.linalg``, ``index_add_``) are allowed
+here and only here.
 """
 from __future__ import annotations
 
@@ -49,3 +50,40 @@ def fused_herm_gathered_ref(theta, idx, val, cnt, lam):
     diag = torch.where(cnt > 0, lam * cnt.to(torch.float32),
                        torch.ones((), dtype=torch.float32, device=cnt.device))
     return herm_ref(g, val, mask, diag)
+
+
+def sgd_block_ref(
+    x: torch.Tensor,      # [mb, f]  user factors of this user block
+    theta: torch.Tensor,  # [nb, f]  item factors of this item block
+    idx: torch.Tensor,    # [mb, K]  block-local item index per slot (0 in padding)
+    val: torch.Tensor,    # [mb, K]  rating (0 in padding)
+    cnt: torch.Tensor,    # [mb]     true nnz per user row
+    lr: float,
+    lam: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batch-Hogwild sweep of one tile (CuMF_SGD): the K slots in order;
+    within a slot every active row (``cnt > k``) updates against the
+    pre-slot factors, and item collisions take the *mean* of the colliding
+    gradients::
+
+        e      = r_uv - <x_u, theta_v>
+        x_u   += lr * (e * theta_v - lam * x_u)
+        th_v  += lr * (mean_{u in slot hits v} e * x_u - lam * theta_v)
+
+    Inactive slots leave x and theta unchanged (their update is ``+ 0``).
+    """
+    K = idx.shape[1]
+    nb = theta.shape[0]
+    mask = mask_from_cnt(cnt, K, x.dtype)
+    for k in range(K):
+        iv = idx[:, k].long()
+        msk = mask[:, k]
+        tv = theta[iv]                                  # [mb, f]
+        e = (val[:, k] - torch.sum(x * tv, dim=-1)) * msk
+        dx = msk[:, None] * (e[:, None] * tv - lam * x)
+        num = torch.zeros_like(theta).index_add_(0, iv, msk[:, None] * (e[:, None] * x))
+        hits = torch.zeros(nb, dtype=x.dtype, device=x.device).index_add_(0, iv, msk)
+        dt = num / torch.clamp(hits, min=1.0)[:, None] \
+            - lam * theta * (hits > 0).to(x.dtype)[:, None]
+        x, theta = x + lr * dx, theta + lr * dt
+    return x, theta

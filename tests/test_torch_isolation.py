@@ -39,7 +39,7 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert res["n"] >= 12
+    assert res["n"] >= 22
     assert res["loaded"] == []          # importing built and loaded nothing
     assert res["jax"] == []
 
@@ -67,8 +67,11 @@ def test_no_file_imports_jax_or_repro(path):
 def test_default_device_raises_without_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid here")
+    import numpy as np
+
     from repro_torch import backend
     from repro_torch.core import als
+    from repro_torch.sgd import blocking, train
 
     with pytest.raises(RuntimeError, match="cuda"):
         als.AlsConfig(f=8, lam=0.05)
@@ -81,17 +84,35 @@ def test_default_device_raises_without_gpu():
     with pytest.raises(ValueError):
         als.AlsConfig(f=8, lam=0.05, device="cpu", mode="kernel_interpret")
 
+    grid = blocking.block_coo(np.array([0, 1]), np.array([1, 0]),
+                              np.ones(2, np.float32), 2, 2, 1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.SgdConfig(f=8, lam=0.05)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.sgd_state_from_numpy([[0.0]], [[0.0]])
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.grid_triplet(grid)
+    assert train.SgdConfig(f=8, lam=0.05, device="cpu").mode == "ref"
+    assert train.grid_triplet(grid, "cpu")[0].device.type == "cpu"
+    with pytest.raises(ValueError):
+        train.SgdConfig(f=8, lam=0.05, device="cpu", mode="kernel_interpret")
+
 
 def test_kernel_modules_do_not_build_on_import():
     code = (
         "import json\n"
-        "from repro_torch.kernels import build, hermitian, batch_solve, ops\n"
+        "from repro_torch.kernels import build, hermitian, batch_solve, ops, sgd_update\n"
         "from repro_torch.core import als\n"
+        "from repro_torch import sgd, checkpoint, training\n"
         "print(json.dumps({'loaded': list(build.loaded()),\n"
         "  'cached': hermitian._launcher.cache_info().currsize\n"
-        "            + batch_solve._launcher.cache_info().currsize,\n"
+        "            + hermitian._bin_launcher.cache_info().currsize\n"
+        "            + batch_solve._launcher.cache_info().currsize\n"
+        "            + sgd_update._launcher.cache_info().currsize,\n"
         "  'launches': hermitian.fused_herm_cuda.launches\n"
-        "              + batch_solve.batch_solve_cuda.launches}))\n")
+        "              + hermitian.herm_hbm_accum_cuda.launches\n"
+        "              + batch_solve.batch_solve_cuda.launches\n"
+        "              + sgd_update.sgd_tile_cuda.launches}))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"), PATH="/nonexistent")
     env.pop("CUDA_HOME", None)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

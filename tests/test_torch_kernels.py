@@ -14,6 +14,8 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as ref_ops  # noqa: E402
+from repro.kernels import ref as ref_kref  # noqa: E402
+from repro.kernels.hermitian import herm_hbm_accum as ref_herm_hbm_accum  # noqa: E402
 from repro_torch.kernels import batch_solve as port_solve  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import hermitian as port_herm  # noqa: E402
@@ -153,3 +155,30 @@ def test_default_mode_on_cpu_tensors_is_plain():
     A, B = _spd(4, 5, 6)
     x = port_ops.batch_solve(*_t(A, B))
     assert torch.equal(x, port_ref.batch_solve_ref(*_t(A, B)))
+
+
+@pytest.mark.parametrize("m,n,K,f,seed", [(16, 40, 24, 8, 7), (13, 40, 32, 12, 23)])
+def test_herm_hbm_accum_matches_reference_ablation(m, n, K, f, seed):
+    """Fig. 7 ablation: the reference's per-bin Pallas kernel (interpret
+    mode, tm=8, tk=8) against the port's wrapper (plain version on the
+    CPU) at tk=8 and at a ragged tk=10 (K % tk != 0)."""
+    theta, idx, val, cnt = _problem(seed, m, n, K, f)
+    diag = np.where(cnt > 0, 0.05 * cnt.astype(np.float32), 1.0).astype(np.float32)
+    g = jnp.take(jnp.asarray(theta), jnp.asarray(idx), axis=0)
+    mask = ref_kref.mask_from_cnt(jnp.asarray(cnt), K, jnp.float32)
+    mp = -(-m // 8) * 8        # the reference's tm=8 tiles need m % 8 == 0
+    pad = ((0, mp - m),)
+    A0, B0 = ref_herm_hbm_accum(jnp.pad(g, pad + ((0, 0), (0, 0))), jnp.pad(jnp.asarray(val), pad + ((0, 0),)),
+                                jnp.pad(mask, pad + ((0, 0),)), jnp.pad(jnp.asarray(diag), pad),
+                                tm=8, tk=8, interpret=True)
+    for tk in (8, 10):
+        launches = port_herm.herm_hbm_accum_cuda.launches
+        A1, B1 = port_herm.herm_hbm_accum_cuda(*_t(theta, idx, val, cnt, diag), tk=tk)
+        assert port_herm.herm_hbm_accum_cuda.launches == launches
+        np.testing.assert_allclose(A1.numpy(), np.asarray(A0)[:m], atol=2e-4, rtol=1e-4)
+        np.testing.assert_allclose(B1.numpy(), np.asarray(B0)[:m], atol=2e-4, rtol=1e-4)
+        A2, B2 = port_herm.fused_herm_plain(*_t(theta, idx, val, cnt, diag))
+        np.testing.assert_allclose(A1.numpy(), A2.numpy(), atol=2e-4, rtol=1e-4)
+        np.testing.assert_allclose(B1.numpy(), B2.numpy(), atol=2e-4, rtol=1e-4)
+    with pytest.raises(ValueError, match="tk"):
+        port_herm.herm_hbm_accum_cuda(*_t(theta, idx, val, cnt, diag), tk=0)

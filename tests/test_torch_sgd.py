@@ -1,0 +1,340 @@
+"""Port SGD path (tile sweep, blocking, epochs, training, hybrid) vs the
+reference, on the CPU.
+
+The same numpy inputs go through ``repro`` and ``repro_torch``; on the CPU
+the port's ``sgd_tile_cuda`` runs its plain PyTorch version.  The
+reference draws its initial state and set orders from ``jax.random``,
+which torch cannot reproduce, so the epoch parity tests inject the
+reference's state, set orders and learning rates.  Tolerances are the
+reference's own (tests/test_sgd.py).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.sgd_update import sgd_block_update as ref_block_update  # noqa: E402
+from repro.sgd import blocking as ref_blocking  # noqa: E402
+from repro.sgd import train as ref_train  # noqa: E402
+from repro.sparse import synth as ref_synth  # noqa: E402
+from repro.training.optimizer import lr_schedule as ref_lr_schedule  # noqa: E402
+from repro_torch.core import als as port_als  # noqa: E402
+from repro_torch.kernels import sgd_update as port_sgd  # noqa: E402
+from repro_torch.sgd import blocking as port_blocking  # noqa: E402
+from repro_torch.sgd import hybrid as port_hybrid  # noqa: E402
+from repro_torch.sgd import train as port_train  # noqa: E402
+from repro_torch.sparse import padded as port_padded  # noqa: E402
+from repro_torch.training.optimizer import lr_schedule as port_lr_schedule  # noqa: E402
+
+MINI = ref_synth.SynthSpec("netflix-mini", m=768, n=160, nnz=40_000, f=8, lam=0.05)
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def _tile(seed, mb, nb, f, K, collide=False):
+    """tests/test_sgd.py's tile generator, as numpy; ``collide`` sends
+    most rows of slot 1 to item 3 (a heavy in-slot collision)."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((mb, f)) * 0.3).astype(np.float32)
+    th = (rng.standard_normal((nb, f)) * 0.3).astype(np.float32)
+    cnt = rng.integers(0, K + 1, mb).astype(np.int32)
+    idx = rng.integers(0, nb, (mb, K)).astype(np.int32)
+    val = rng.standard_normal((mb, K)).astype(np.float32)
+    if collide:
+        cnt = np.maximum(cnt, 2).astype(np.int32)
+        idx[: mb * 3 // 4, 1] = 3
+    return x, th, idx, val, cnt
+
+
+# ---------------------------------------------------------------------------
+# the tile sweep
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mb,nb,f,K,collide", [
+    (12, 10, 5, 9, False), (8, 8, 8, 8, False), (16, 24, 4, 17, False),
+    (64, 12, 6, 10, True)])
+def test_sgd_block_update_matches_reference(mb, nb, f, K, collide):
+    x, th, idx, val, cnt = _tile(mb * 100 + K, mb, nb, f, K, collide)
+    args = (jnp.asarray(x), jnp.asarray(th), jnp.asarray(idx), jnp.asarray(val),
+            jnp.asarray(cnt), 0.05, 0.01)
+    refs = [ref_block_update(*args, mode="ref"),
+            ref_block_update(*args, mode="kernel_interpret",
+                             row_mult=8, col_mult=8, f_mult=8)]
+    for mode in ("kernel", "ref"):
+        xp, tp = port_sgd.sgd_block_update(
+            *(torch.from_numpy(a) for a in (x, th, idx, val, cnt)), 0.05, 0.01, mode=mode)
+        for xr, tr in refs:
+            np.testing.assert_allclose(_np(xp), np.asarray(xr), atol=1e-5, rtol=1e-5)
+            np.testing.assert_allclose(_np(tp), np.asarray(tr), atol=1e-5, rtol=1e-5)
+
+
+def test_sgd_update_leaves_empty_rows_and_unhit_items_unchanged():
+    x = torch.ones((4, 3))
+    th = torch.ones((5, 3))
+    idx = torch.zeros((4, 6), dtype=torch.int32)
+    val = torch.zeros((4, 6))
+    cnt = torch.zeros(4, dtype=torch.int32)
+    for mode in ("kernel", "ref"):
+        x2, t2 = port_sgd.sgd_block_update(x, th, idx, val, cnt, 0.1, 0.05, mode=mode)
+        assert torch.equal(x2, x) and torch.equal(t2, th)
+    # one live row: the other rows and the items it does not hit stay as they were
+    cnt[1] = 2
+    idx[1, :2] = torch.tensor([2, 4], dtype=torch.int32)
+    val[1, :2] = 3.0
+    x2, t2 = port_sgd.sgd_block_update(x, th, idx, val, cnt, 0.1, 0.05)
+    assert torch.equal(x2[[0, 2, 3]], x[[0, 2, 3]]) and not torch.equal(x2[1], x[1])
+    assert torch.equal(t2[[0, 1, 3]], th[[0, 1, 3]]) and not torch.equal(t2[2], th[2])
+
+
+def test_sgd_tile_is_pure_and_rejects_bad_inputs():
+    x, th, idx, val, cnt = (torch.from_numpy(a) for a in _tile(1, 8, 6, 4, 5))
+    before = [t.clone() for t in (x, th)]
+    launches = port_sgd.sgd_tile_cuda.launches
+    port_sgd.sgd_tile_cuda(x, th, idx, val, cnt, 0.1, 0.05)
+    assert torch.equal(x, before[0]) and torch.equal(th, before[1])
+    assert port_sgd.sgd_tile_cuda.launches == launches      # CPU: plain version
+    with pytest.raises(ValueError, match="int32"):
+        port_sgd.sgd_tile_cuda(x, th, idx.long(), val, cnt, 0.1, 0.05)
+    with pytest.raises(ValueError, match="outside"):
+        port_sgd.sgd_tile_cuda(torch.zeros(8, 129), torch.zeros(6, 129), idx, val, cnt, 0.1, 0.05)
+    with pytest.raises(ValueError, match="unknown mode"):
+        port_sgd.sgd_block_update(x, th, idx, val, cnt, 0.1, 0.05, mode="kernel_interpret")
+
+
+# ---------------------------------------------------------------------------
+# blocking: bit-equal to the reference
+# ---------------------------------------------------------------------------
+
+def _random_coo(rng, m, n, nnz):
+    rows = rng.integers(0, m, nnz)
+    cols = rng.integers(0, n, nnz)
+    _, uniq = np.unique(rows * n + cols, return_index=True)
+    return rows[uniq], cols[uniq], rng.standard_normal(len(uniq)).astype(np.float32)
+
+
+def _skewed_coo(rng, m, n, nnz, alpha=1.2):
+    p = np.arange(1, m + 1, dtype=np.float64) ** -alpha
+    rows = rng.choice(m, size=nnz, p=p / p.sum())
+    cols = rng.integers(0, n, nnz)
+    _, uniq = np.unique(rows * n + cols, return_index=True)
+    return rows[uniq], cols[uniq], rng.standard_normal(len(uniq)).astype(np.float32)
+
+
+def _assert_grids_equal(a, b):
+    for name in ("idx", "val", "cnt"):
+        got, want = getattr(a, name), getattr(b, name)
+        assert got.dtype == want.dtype and np.array_equal(got, want), name
+    for name in ("tile_K", "user_perm"):
+        got, want = getattr(a, name), getattr(b, name)
+        assert (got is None) == (want is None), name
+        if got is not None:
+            assert got.dtype == want.dtype and np.array_equal(got, want), name
+    assert (a.g, a.m, a.n, a.mb, a.nb, a.K) == (b.g, b.m, b.n, b.mb, b.nb, b.K)
+    assert a.padded_slots == b.padded_slots and a.fill == b.fill
+
+
+@pytest.mark.parametrize("skewed", [False, True])
+@pytest.mark.parametrize("per_tile_k,degree_sort", [(False, False), (True, False),
+                                                    (False, True), (True, True)])
+def test_block_coo_and_block_ell_bit_equal_reference(skewed, per_tile_k, degree_sort):
+    rng = np.random.default_rng(17 + skewed)
+    m, n = 96, 48
+    rows, cols, vals = (_skewed_coo if skewed else _random_coo)(rng, m, n, 1500)
+    kw = dict(per_tile_k=per_tile_k, degree_sort=degree_sort)
+    _assert_grids_equal(port_blocking.block_coo(rows, cols, vals, m, n, 4, **kw),
+                        ref_blocking.block_coo(rows, cols, vals, m, n, 4, **kw))
+    ptr, cc, vv = port_padded.csr_from_coo(rows, cols, vals, m)
+    ell = port_padded.pad_csr_fast(ptr, cc, vv, n)
+    _assert_grids_equal(port_blocking.block_ell(ell, 3, **kw),
+                        ref_blocking.block_ell(ell, 3, **kw))
+
+
+@pytest.mark.parametrize("g,seed", [(1, 0), (2, 1), (3, 2), (4, 3)])
+def test_block_grid_to_coo_round_trips(g, seed):
+    rng = np.random.default_rng(seed)
+    m, n = 40, 24
+    rows, cols, vals = _skewed_coo(rng, m, n, 300)
+    for kw in ({}, {"per_tile_k": True, "degree_sort": True}):
+        grid = port_blocking.block_coo(rows, cols, vals, m, n, g, **kw)
+        assert grid.nnz == len(rows)
+        r2, c2, v2 = grid.to_coo()
+        assert sorted(zip(rows.tolist(), cols.tolist(), vals.tolist())) == \
+            sorted(zip(r2.tolist(), c2.tolist(), v2.tolist()))
+        if grid.user_perm is not None:
+            np.testing.assert_array_equal(grid.user_inv[grid.user_perm], np.arange(m))
+
+
+@pytest.mark.parametrize("g", [1, 2, 3, 5])
+def test_diagonal_sets_conflict_free_and_equal_reference(g):
+    sets = port_blocking.diagonal_sets(g)
+    assert sets == ref_blocking.diagonal_sets(g)
+    seen = set()
+    for s in sets:
+        assert len({i for i, _ in s}) == g and len({j for _, j in s}) == g
+        seen.update(s)
+    assert len(seen) == g * g
+    assert [port_blocking.tile_k_ladder(k) for k in range(1, 70)] == \
+        [ref_blocking.tile_k_ladder(k) for k in range(1, 70)]
+
+
+def test_per_tile_k_auto_is_not_ported_yet():
+    rng = np.random.default_rng(0)
+    rows, cols, vals = _random_coo(rng, 16, 8, 40)
+    with pytest.raises(NotImplementedError, match="autotuner"):
+        port_blocking.block_coo(rows, cols, vals, 16, 8, 2, per_tile_k="auto")
+
+
+# ---------------------------------------------------------------------------
+# lr schedule and set order
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["constant", "inverse_time", "cosine"])
+def test_lr_schedule_and_epoch_lr_equal_reference(name):
+    """float32 like the reference: constant and inverse_time are bit-equal;
+    cosine may differ where ``cos`` rounds one ulp apart, so it is held at
+    one ulp of cos scaled by the amplitude, (base_lr - min_lr) * 2^-23."""
+    for kw in (dict(base_lr=0.15, total_steps=40, min_lr=0.001),
+               dict(base_lr=0.08, total_steps=3), dict(base_lr=0.1, total_steps=5, decay=1.0)):
+        want = np.array([np.float32(ref_lr_schedule(name, s, **kw)) for s in range(45)])
+        got = np.array([port_lr_schedule(name, s, **kw).item() for s in range(45)], np.float32)
+        if name == "cosine":
+            amp = kw["base_lr"] - kw.get("min_lr", 0.0)
+            np.testing.assert_allclose(got, want, rtol=0, atol=amp * 2.0 ** -23)
+        else:
+            np.testing.assert_array_equal(got, want)
+    cfg_kw = dict(f=4, lam=0.05, lr=0.15, epochs=40, schedule=name, min_lr=0.001)
+    pc = port_train.SgdConfig(device="cpu", **cfg_kw)
+    rc = ref_train.SgdConfig(**cfg_kw)
+    for ep in (0, 7, 39):
+        np.testing.assert_allclose(port_train.epoch_lr(pc, ep), ref_train.epoch_lr(rc, ep),
+                                   rtol=0, atol=0.15 * 2.0 ** -23)
+
+
+def test_epoch_set_order_is_reproducible_permutation():
+    g = 6
+    orders = [port_train.epoch_set_order(0, ep, g) for ep in range(8)]
+    for o in orders:
+        assert sorted(o.tolist()) == list(range(g))
+    assert torch.equal(orders[3], port_train.epoch_set_order(0, 3, g))
+    assert any(not torch.equal(orders[0], o) for o in orders[1:])
+    assert any(not torch.equal(port_train.epoch_set_order(s, 0, g), orders[0])
+               for s in range(1, 5))
+
+
+# ---------------------------------------------------------------------------
+# epochs on netflix-mini, from the reference's injected state
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def problem():
+    r, rt, rte, _ = ref_synth.make_synthetic_ratings(MINI, seed=2, noise=0.1)
+    return r, rt, rte
+
+
+@pytest.fixture(scope="module")
+def als_rmse(problem):
+    """The port's own ALS test RMSE after 8 iterations (the reference's
+    baseline for its SGD/hybrid criteria)."""
+    r, rt, rte = problem
+    cfg = port_als.AlsConfig(f=MINI.f, lam=MINI.lam, iters=8, device="cpu")
+    _, hist = port_als.als_train(*(port_als.ell_triplet(e, "cpu") for e in (r, rt)),
+                                 r.m, rt.m, cfg, test=port_als.ell_triplet(rte, "cpu"))
+    return hist[-1]["test_rmse"]
+
+
+@pytest.mark.parametrize("layout", ["uniform", "per_tile_k_sorted"])
+def test_two_epochs_match_reference(problem, layout):
+    r = problem[0]
+    kw = {} if layout == "uniform" else dict(per_tile_k=True, degree_sort=True)
+    grid_r = ref_blocking.block_ell(r, 4, **kw)
+    grid_p = port_blocking.block_ell(r, 4, **kw)
+    if kw:
+        assert int(grid_p.tile_K.min()) < grid_p.K        # grouped per-K sweep
+    rc = ref_train.SgdConfig(f=MINI.f, lam=MINI.lam, lr=0.1, epochs=2, mode="ref", seed=3)
+    s = ref_train.sgd_init(grid_r, rc)
+    state = port_train.sgd_state_from_numpy(np.asarray(s.x), np.asarray(s.theta), 0, "cpu")
+    gt_r, gt_p = ref_train.grid_triplet(grid_r), port_train.grid_triplet(grid_p, "cpu")
+    for mode in ("kernel", "ref"):
+        pc = port_train.SgdConfig(f=MINI.f, lam=MINI.lam, lr=0.1, epochs=2, mode=mode,
+                                  device="cpu")
+        s_ref, s_port = s, state
+        for ep in range(2):
+            order = ref_train.epoch_set_order(rc.seed, ep, grid_r.g)
+            lr = ref_train.epoch_lr(rc, ep)
+            s_ref = ref_train.sgd_epoch(s_ref, gt_r, grid_r, rc, lr, set_order=order)
+            s_port = port_train.sgd_epoch(s_port, gt_p, grid_p, pc, lr,
+                                          set_order=np.asarray(order))
+        assert s_port.epoch == 2
+        np.testing.assert_allclose(_np(s_port.x), np.asarray(s_ref.x), atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(_np(s_port.theta), np.asarray(s_ref.theta),
+                                   atol=1e-5, rtol=1e-5)
+        xr, tr = ref_train.factors_np(s_ref, grid_r)
+        xp, tp = port_train.factors_np(s_port, grid_p)
+        np.testing.assert_allclose(xp, xr, atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(tp, tr, atol=1e-5, rtol=1e-5)
+
+
+def test_sgd_epoch_rejects_overpadded_factors(problem):
+    grid = port_blocking.block_ell(problem[0], 4)
+    cfg = port_train.SgdConfig(f=MINI.f, lam=MINI.lam, device="cpu")
+    state = port_train.sgd_init(grid, cfg)
+    bad = port_train.SgdState(x=state.x, epoch=0, theta=port_train.pad_factor(
+        state.theta, grid.g * grid.nb + grid.g))
+    with pytest.raises(ValueError, match="do not fit the grid"):
+        port_train.sgd_epoch(bad, port_train.grid_triplet(grid, "cpu"), grid, cfg, 0.1)
+    with pytest.raises(ValueError, match="cannot pad"):
+        port_train.pad_factor(state.theta, 3)
+
+
+def test_sgd_init_is_seeded_and_scaled(problem):
+    grid = port_blocking.block_ell(problem[0], 4)
+    cfg = port_train.SgdConfig(f=MINI.f, lam=MINI.lam, seed=5, device="cpu")
+    a, b = port_train.sgd_init(grid, cfg), port_train.sgd_init(grid, cfg)
+    assert torch.equal(a.x, b.x) and torch.equal(a.theta, b.theta) and a.epoch == 0
+    assert a.x.shape == (grid.g * grid.mb, MINI.f) and a.theta.shape == (grid.g * grid.nb, MINI.f)
+    assert 0.0 <= float(a.x.min()) and float(a.x.max()) < cfg.init_scale
+
+
+# ---------------------------------------------------------------------------
+# training: the reference's criteria (within 2% of ALS)
+# ---------------------------------------------------------------------------
+
+def test_sgd_within_2pct_of_als(problem, als_rmse):
+    r, _, rte = problem
+    grid = port_blocking.block_ell(r, 4)
+    cfg = port_train.SgdConfig(f=MINI.f, lam=MINI.lam, lr=0.15, epochs=40,
+                               schedule="cosine", seed=1, device="cpu")
+    assert cfg.mode == "ref"
+    _, hist = port_train.sgd_train(grid, cfg, test=port_als.ell_triplet(rte, "cpu"))
+    assert hist[-1]["test_rmse"] <= als_rmse * 1.02, (hist[-1]["test_rmse"], als_rmse)
+    assert hist[-1]["lr"] < hist[0]["lr"] * 0.1
+
+
+def test_hybrid_within_2pct_of_als(problem, als_rmse):
+    r, rt, rte = problem
+    grid = port_blocking.block_ell(r, 4)
+    warm = port_als.AlsConfig(f=MINI.f, lam=MINI.lam, iters=2, device="cpu")
+    refine = port_train.SgdConfig(f=MINI.f, lam=MINI.lam, lr=0.12, epochs=16,
+                                  schedule="cosine", seed=1, mode="kernel", device="cpu")
+    _, hist = port_hybrid.hybrid_train(
+        port_als.ell_triplet(r, "cpu"), port_als.ell_triplet(rt, "cpu"), grid, warm, refine,
+        test=port_als.ell_triplet(rte, "cpu"))
+    assert [h["phase"] for h in hist] == ["als"] * 2 + ["sgd"] * 16
+    assert hist[-1]["test_rmse"] <= als_rmse * 1.02, (hist[-1]["test_rmse"], als_rmse)
+    assert hist[2]["test_rmse"] < hist[0]["test_rmse"]
+
+
+def test_sgd_state_from_als_permutes_and_pads(problem):
+    r = problem[0]
+    grid = port_blocking.block_ell(r, 4, per_tile_k=True, degree_sort=True)
+    x = torch.arange(r.m * 2, dtype=torch.float32).reshape(r.m, 2)
+    th = torch.ones(r.n_cols, 2)
+    st = port_hybrid.sgd_state_from_als(port_als.AlsState(x, th, 3), grid)
+    assert st.x.shape == (grid.g * grid.mb, 2) and st.theta.shape == (grid.g * grid.nb, 2)
+    assert st.epoch == 0
+    xe, te = port_train.eval_factors(st, grid)
+    assert torch.equal(xe, x) and torch.equal(te, th)
