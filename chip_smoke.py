@@ -10,7 +10,11 @@ Phases, in order; any failure stops the run with a non-zero exit:
 2. build all four CUDA kernels from ``src/repro_torch/kernels/csrc`` (in
    parallel) and print what ptxas said;
 3. the ALS kernels against their plain PyTorch versions at f in
-   {8, 100, 128}, with ragged and empty rows and ``diag_fallback`` on and off;
+   {8, 33, 100, 128}, with ragged and empty rows and ``diag_fallback`` on
+   and off, two calls of each bit-equal; heavy rows (K >= 20 split
+   parts, ragged cnt, cnt on a part boundary) against the plain version
+   and its split order of work; a near-singular system where the
+   reference's clamps decide the solution;
 3b. the SGD tile sweep and the Fig. 7 Hermitian against their plain
    versions at f in {8, 100, 128} (empty rows, ragged cnt, a forced heavy
    item collision, a ragged last bin), and two SGD calls bit-equal;
@@ -59,6 +63,7 @@ HERM_ATOL, HERM_RTOL = 2e-4, 1e-4      # tests/test_kernels.py:44
 SOLVE_TOL = 5e-4                       # tests/test_kernels.py:77
 TRAJ_TOL = 3e-3                        # tests/test_convergence.py:80
 SGD_TOL = 1e-5                         # tests/test_sgd.py:97, :285
+SOLVE_NB = 16                          # kNB of csrc/batch_solve.cu
 PLAIN_CHUNK_ELEMS = 1 << 28            # gathered floats per plain-version chunk
 
 
@@ -108,7 +113,8 @@ def main() -> int:
     from repro_torch.kernels import ref as kref
     from repro_torch.kernels.batch_solve import batch_solve_cuda, batch_solve_plain
     from repro_torch.kernels.hermitian import (fused_herm_cuda, fused_herm_plain,
-                                               herm_hbm_accum_cuda, herm_hbm_accum_plain)
+                                               herm_hbm_accum_cuda, herm_hbm_accum_plain,
+                                               split_slots)
     from repro_torch.kernels.sgd_update import sgd_tile_cuda, sgd_tile_plain
     from repro_torch.sgd import blocking, hybrid
     from repro_torch.sgd import train as sgd
@@ -139,7 +145,7 @@ def main() -> int:
 
     # -- 3. kernel vs plain, small shapes ----------------------------------------
     gen = torch.Generator().manual_seed(0)
-    for f in (8, 100, 128):
+    for f in (8, 33, 100, 128):
         n, m, K = 700, 257, 3000
         theta = torch.randn(n, f, generator=gen).to(dev)
         idx = torch.randint(0, n, (m, K), generator=gen, dtype=torch.int32).to(dev)
@@ -159,14 +165,22 @@ def main() -> int:
                   f"fused_herm disagrees with its plain version at f={f}")
         # SPD systems as ALS makes them (the fallback puts I on empty rows)
         A, B = ops.fused_herm(theta, idx, val, cnt, 0.05, mode="kernel")
+        A2, B2 = ops.fused_herm(theta, idx, val, cnt, 0.05, mode="kernel")
+        check(torch.equal(A, A2) and torch.equal(B, B2),
+              f"two fused_herm calls on the same inputs differ at f={f}")
         x1 = ops.batch_solve(A, B, mode="kernel")
         x0 = ops.batch_solve(A, B, mode="ref")
+        xb = kref.batch_solve_blocked_plain(A, B, SOLVE_NB)
+        check(torch.equal(x1, ops.batch_solve(A, B, mode="kernel")),
+              f"two batch_solve calls on the same inputs differ at f={f}")
         resid = (torch.einsum("uij,uj->ui", A, x1) - B).abs().max().item()
         scale = B.abs().max().item()
         log(f"solve f={f}: max|dx|={(x1 - x0).abs().max().item():.3g} "
-            f"max residual {resid:.3g} (max|B| {scale:.3g})")
-        check(torch.allclose(x1, x0, atol=SOLVE_TOL, rtol=SOLVE_TOL),
-              f"batch_solve disagrees with its plain version at f={f}")
+            f"(blocked plain {(x1 - xb).abs().max().item():.3g}) "
+            f"max residual {resid:.3g} (max|B| {scale:.3g}); two calls of each kernel bit-equal")
+        check(torch.allclose(x1, x0, atol=SOLVE_TOL, rtol=SOLVE_TOL)
+              and torch.allclose(x1, xb, atol=SOLVE_TOL, rtol=SOLVE_TOL),
+              f"batch_solve disagrees with its plain versions at f={f}")
         check(resid <= 1e-4 * max(scale, 1.0), f"batch_solve residual {resid} at f={f}")
         diag = torch.where(cnt > 0, 0.05 * cnt.float(), torch.ones(m, device=dev))
         g = theta[idx.long()]
@@ -178,7 +192,52 @@ def main() -> int:
             f" | solve kernel {cuda_ms(torch, lambda: batch_solve_cuda(A, B)):.3f}"
             f" plain {cuda_ms(torch, lambda: batch_solve_plain(A, B)):.3f}"
             f" cholesky_ex+cholesky_solve {cuda_ms(torch, lambda: torch.cholesky_solve(B[..., None], torch.linalg.cholesky_ex(A)[0])):.3f}")
-        del g, gm
+        del g, gm, A2, B2
+
+    # heavy rows: K >= 20 parts of the split, cnt ragged, on a part boundary,
+    # 0; factors and ratings as ALS has them (the tolerances are absolute
+    # at 2e-4, and sums of 4e4 signed terms would cancel below them)
+    S = split_slots()
+    f, n, K = 100, 700, 20 * S + 123
+    theta = (torch.rand(n, f, generator=gen) * 0.3).to(dev)
+    idx = torch.randint(0, n, (6, K), generator=gen, dtype=torch.int32).to(dev)
+    cnt = torch.tensor([K, 0, 3 * S, 20 * S + 1, 777, K - 5], dtype=torch.int32).to(dev)
+    val = (torch.rand(6, K, generator=gen) * 4 + 1).to(dev) * kref.mask_from_cnt(cnt, K)
+    diag = torch.where(cnt > 0, 0.05 * cnt.float(), torch.ones(6, device=dev))
+    calls = fused_herm_cuda.cuda_launches
+    A1, B1 = fused_herm_cuda(theta, idx, val, cnt, diag)
+    A2, B2 = fused_herm_cuda(theta, idx, val, cnt, diag)
+    check(fused_herm_cuda.cuda_launches - calls == 4, "a split fused_herm call is not 2 launches")
+    for name, (A0, B0) in (("plain", fused_herm_plain(theta, idx, val, cnt, diag)),
+                           ("split-order plain", kref.fused_herm_chunked_plain(
+                               theta, idx, val, cnt, diag, S))):
+        log(f"herm heavy rows (K={K}, split {S}) vs {name}: max|dA|="
+            f"{(A1 - A0).abs().max().item():.3g} max|dB|={(B1 - B0).abs().max().item():.3g}")
+        check(torch.allclose(A1, A0, atol=HERM_ATOL, rtol=HERM_RTOL)
+              and torch.allclose(B1, B0, atol=HERM_ATOL, rtol=HERM_RTOL),
+              f"fused_herm on heavy rows disagrees with its {name} version")
+    check(torch.equal(A1, A2) and torch.equal(B1, B2),
+          "two split fused_herm calls on the same inputs differ")
+    log("  two split fused_herm calls bit-equal")
+    x1 = batch_solve_cuda(A1, B1)
+    check(torch.allclose(x1, batch_solve_plain(A1, B1), atol=SOLVE_TOL, rtol=SOLVE_TOL),
+          "batch_solve disagrees with its plain version on the heavy rows' systems")
+    del A1, B1, A2, B2, idx, val
+
+    # near-singular: coordinate 5 decoupled, pivot 1e-30, b 1e-30 -> x_5 = 1e10
+    L = torch.randn(64, 20, 20, generator=gen) * 0.3
+    A = L @ L.transpose(1, 2) + 2 * torch.eye(20)
+    B = torch.randn(64, 20, generator=gen)
+    A[:, 5, :] = 0.0
+    A[:, :, 5] = 0.0
+    A[:, 5, 5] = 1e-30
+    B[:, 5] = 1e-30
+    A, B = A.to(dev), B.to(dev)
+    x1, x0 = batch_solve_cuda(A, B), kref.batch_solve_blocked_plain(A, B, SOLVE_NB)
+    log(f"solve near-singular: x_5 {x1[:, 5].min().item():.4g}..{x1[:, 5].max().item():.4g} "
+        f"(clamped; exact 1), max|dx| vs blocked plain {(x1 - x0).abs().max().item():.3g}")
+    check(torch.allclose(x1, x0, atol=SOLVE_TOL, rtol=SOLVE_TOL),
+          "batch_solve disagrees with the clamped plain version on a near-singular system")
 
     # -- 3b. SGD sweep and Fig. 7 Hermitian vs plain, small shapes -----------------
     for f in (8, 100, 128):
@@ -224,10 +283,12 @@ def main() -> int:
     def reset_counts():
         for w in wrappers.values():
             w.launches = 0
+        fused_herm_cuda.cuda_launches = 0
 
     def read_counts(phase: str, path=("fused_herm", "batch_solve")) -> dict:
         counts = {name: w.launches for name, w in wrappers.items()}
-        log(f"{phase} launches: {counts}")
+        log(f"{phase} launches: {counts}; fused_herm CUDA launches "
+            f"{fused_herm_cuda.cuda_launches}")
         for name in path:
             check(counts[name] > 0, f"{phase}: kernel {name} was never launched")
         return counts
@@ -369,13 +430,16 @@ def main() -> int:
                             "solve_lib_ms", "solve_ops", "solve_bytes")}
     err = {"herm": 0.0, "solve": 0.0}
     f = spec.f
+    herm_cuda_launches = 0
     for side, (fixed, binned) in zip(("users", "items"), sides):
         for b in binned.bins:
             before = (tot["herm_ms"], tot["solve_ms"])
             idx, val, cnt = triplet(b)
             diag = torch.where(cnt > 0, spec.lam * cnt.float(), torch.ones_like(cnt, dtype=torch.float32))
             nnz, m = b.nnz, b.m
+            launched = fused_herm_cuda.cuda_launches
             A, B = fused_herm_cuda(fixed, idx, val, cnt, diag)
+            herm_cuda_launches += fused_herm_cuda.cuda_launches - launched
             step = max(1, PLAIN_CHUNK_ELEMS // (b.K * f))
             chunks = [slice(lo, lo + step) for lo in range(0, m, step)]
             for sl in chunks:
@@ -409,7 +473,8 @@ def main() -> int:
             tot["solve_ops"] += m * (f ** 3 / 3 + 2 * f * f)
             tot["solve_bytes"] += A.numel() * 4 + 2 * B.numel() * 4
             log(f"  {side} bin K={b.K}: {m} rows, {nnz} ratings, max|A| "
-                f"{A.abs().max().item():.4g}; fused_herm "
+                f"{A.abs().max().item():.4g}; fused_herm ("
+                f"{f'{-(-b.K // S)} parts, 2 launches' if b.K > S else '1 launch'}) "
                 f"{tot['herm_ms'] - before[0]:.3f} ms, batch_solve "
                 f"{tot['solve_ms'] - before[1]:.3f} ms")
             del A, B, x1, x0
@@ -420,7 +485,9 @@ def main() -> int:
 
     hb, hb_by = bound(tot["herm_ops"], tot["herm_bytes"])
     sb, sb_by = bound(tot["solve_ops"], tot["solve_bytes"])
+    n_bins = len(rb.bins) + len(rtb.bins)
     log(f"per iteration at quarter-Netflix: fused_herm {tot['herm_ms']:.2f} ms "
+        f"({n_bins} calls, {herm_cuda_launches} CUDA launches) "
         f"(plain {tot['herm_plain_ms']:.2f}, bmm {tot['herm_lib_ms']:.2f}, bound {hb:.2f} by {hb_by}); "
         f"batch_solve {tot['solve_ms']:.2f} ms (plain {tot['solve_plain_ms']:.2f}, "
         f"cholesky_ex+cholesky_solve {tot['solve_lib_ms']:.2f}, bound {sb:.2f} by {sb_by})")

@@ -1,7 +1,8 @@
 """Batched SPD solve: wrapper of the CUDA kernel ``csrc/batch_solve.cu``.
 
 Replaces the reference's Pallas kernel ``repro/kernels/batch_solve.py``
-``batch_solve_pallas``.  One CTA per system, no padding of the batch:
+``batch_solve_pallas``: a blocked Cholesky with the right-hand side
+carried as one more row, one CTA per system, no padding of the batch:
 empty rows already arrive as A = I (``ops.fused_herm``'s
 ``diag_fallback`` and ``core.als.solve_accumulated``'s guard).
 

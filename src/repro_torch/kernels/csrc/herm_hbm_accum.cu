@@ -13,10 +13,11 @@
 // So the accumulator makes a round trip through device memory after every
 // bin: cuMF's Alg. 2 without the register optimisation (paper Fig. 7).
 //
-// Design: fused_herm's kernel template (herm_tile.cuh), instantiated for a
-// slot range and without the diagonal and launched per bin, so the
-// ablation changes only where the accumulator lives between bins.  A ragged last bin (K % tk != 0) is
-// fine.  Never on the ALS main path.
+// Design: fused_herm's kernel template (herm_tile.cuh: register tiles,
+// cp.async gather), instantiated with kBin = true: one slot range, no
+// diagonal, no split of heavy rows, launched per bin, so the ablation
+// changes only where the accumulator lives between bins.  A ragged last
+// bin (K % tk != 0) is fine.  Never on the ALS main path.
 //
 // Bound on an H100: the same function as fused_herm, so the same bound
 // (operations: nnz * (f*(f+1) + 2f) fp32 flops against 67 TFLOP/s).  This
@@ -30,6 +31,6 @@ extern "C" int herm_bin_launch(const float* theta, const int* idx,
                                const float* val, const int* cnt, float* dA,
                                float* dB, int m, int K, int f, int n, int k0,
                                int k1, int device, void* stream) {
-  return herm::launch<true>(theta, idx, val, cnt, nullptr, dA, dB, m, K, f, n, k0, k1, device,
-                            stream);
+  return herm::launch<true>(theta, idx, val, cnt, nullptr, dA, dB, nullptr, m, K, f, n, k0, k1,
+                            device, stream);
 }

@@ -4,7 +4,10 @@
 ``fused_herm_cuda`` replaces the reference's Pallas kernel
 ``repro/kernels/hermitian.py`` ``fused_herm_pallas`` and the
 ``theta[idx]`` gather in front of it: the kernel gathers the rated theta
-rows itself, so the ``[m, K, f]`` tensor is never built on the card.
+rows itself, so the ``[m, K, f]`` tensor is never built on the card.  A
+bin with more than :func:`split_slots` slots per row is split over
+several CTAs per row, whose partials a second kernel sums in a fixed
+order; the wrapper allocates their scratch.
 
 ``herm_hbm_accum_cuda`` replaces the reference's ``herm_hbm_accum``, the
 paper's Fig. 7 ablation: the same A and B, but one launch per bin of
@@ -14,7 +17,8 @@ running sum between launches.  It is never on the ALS main path.
 What bounds each kernel and how it is laid out is noted in its CUDA
 source.  Each ``*_cuda`` wrapper launches its kernel for tensors on the
 card and runs its ``*_plain`` version for tensors on the CPU; its
-``launches`` attribute counts the kernel launches.
+``launches`` attribute counts the wrapper's launching calls, and
+``fused_herm_cuda.cuda_launches`` the CUDA kernels those calls started.
 """
 from __future__ import annotations
 
@@ -32,9 +36,27 @@ MAX_F = 128
 @functools.cache
 def _launcher():
     fn = build.load("hermitian").fused_herm_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _scratch_floats():
+    fn = build.load("hermitian").fused_herm_scratch_floats
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    return fn
+
+
+@functools.cache
+def split_slots() -> int:
+    """Slots per CTA of a split row (``kSplit`` in ``csrc/herm_tile.cuh``);
+    builds the library.  Bins with K above it take two CUDA launches."""
+    fn = build.load("hermitian").fused_herm_split_slots
+    fn.argtypes = []
+    fn.restype = ctypes.c_int
+    return fn()
 
 
 @functools.cache
@@ -88,18 +110,24 @@ def fused_herm_cuda(
     if m == 0:
         return A, B
     theta, idx, val, cnt, diag = (t.contiguous() for t in (theta, idx, val, cnt, diag))
+    n_scratch = _scratch_floats()(m, K, f)
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=theta.device) \
+        if n_scratch else None
     rc = _launcher()(theta.data_ptr(), idx.data_ptr(), val.data_ptr(),
                      cnt.data_ptr(), diag.data_ptr(), A.data_ptr(), B.data_ptr(),
+                     scratch.data_ptr() if scratch is not None else None,
                      m, K, f, n, theta.device.index or 0,
                      torch.cuda.current_stream(theta.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_herm kernel launch failed: cudaError {rc} "
                            f"(m={m}, K={K}, f={f}, n={n})")
     fused_herm_cuda.launches += 1
+    fused_herm_cuda.cuda_launches += 2 if scratch is not None else 1
     return A, B
 
 
 fused_herm_cuda.launches = 0
+fused_herm_cuda.cuda_launches = 0
 
 
 def herm_hbm_accum_plain(theta, idx, val, cnt, diag, *, tk: int):

@@ -42,6 +42,54 @@ def batch_solve_ref(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return torch.cholesky_solve(B[..., None], L)[..., 0]
 
 
+def fused_herm_chunked_plain(theta, idx, val, cnt, diag, chunk: int):
+    """:func:`herm_ref` in the order of work of the split Hermitian kernel:
+    a partial (no diagonal) per ``chunk`` slots, the partials summed in
+    chunk order from zero, then the diagonal.  For tests and
+    ``chip_smoke.py`` only."""
+    m, K = idx.shape
+    f = theta.shape[1]
+    mask = mask_from_cnt(cnt, K, theta.dtype)
+    zero = torch.zeros(m, dtype=theta.dtype, device=theta.device)
+    A = torch.zeros((m, f, f), dtype=theta.dtype, device=theta.device)
+    B = torch.zeros((m, f), dtype=theta.dtype, device=theta.device)
+    for k0 in range(0, K, chunk):
+        part = slice(k0, k0 + chunk)
+        dA, dB = herm_ref(theta[idx[:, part].long()], val[:, part], mask[:, part], zero)
+        A, B = A + dA, B + dB
+    return A + diag[:, None, None] * torch.eye(f, dtype=A.dtype, device=A.device), B
+
+
+def batch_solve_blocked_plain(A: torch.Tensor, B: torch.Tensor, nb: int) -> torch.Tensor:
+    """x_u = A_u^{-1} B_u in the order of work of the blocked solve kernel:
+    right-looking Cholesky over blocks of ``nb`` columns of
+    W = [A_u ; B_u^T], so the forward substitution is W's last row, then a
+    blocked back substitution.  The clamps sit where the reference's are:
+    ``max(pivot, 1e-20)`` before ``rsqrt`` and ``max(L_jj, 1e-20)`` as
+    both substitutions' divisors.  For tests and ``chip_smoke.py`` only."""
+    m, f, _ = A.shape
+    W = torch.zeros((m, f + 1, f + 1), dtype=A.dtype, device=A.device)
+    W[:, :f, :f] = A
+    W[:, f, :f] = B
+    for j0 in range(0, f, nb):
+        j1 = min(j0 + nb, f)
+        for c in range(j0, j1):           # the diagonal block and the panel below it
+            r = torch.rsqrt(torch.clamp(W[:, c, c], min=1e-20))
+            W[:, c:f, c] = W[:, c:f, c] * r[:, None]
+            W[:, f, c] = W[:, f, c] / torch.clamp(W[:, c, c], min=1e-20)
+            W[:, c + 1:, c + 1:j1] -= W[:, c + 1:, c, None] * W[:, None, c + 1:j1, c]
+        W[:, j1:, j1:f] -= W[:, j1:, j0:j1] @ W[:, j1:f, j0:j1].transpose(1, 2)
+    z = W[:, f, :f].clone()
+    x = torch.zeros_like(B)
+    for J0 in reversed(range(0, f, nb)):
+        J1 = min(J0 + nb, f)
+        for c in reversed(range(J0, J1)):
+            x[:, c] = z[:, c] / torch.clamp(W[:, c, c], min=1e-20)
+            z[:, J0:c] -= W[:, c, J0:c] * x[:, c, None]
+        z[:, :J0] -= torch.einsum("uck,uc->uk", W[:, J0:J1, :J0], x[:, J0:J1])
+    return x
+
+
 def fused_herm_gathered_ref(theta, idx, val, cnt, lam):
     """Gather + Hermitian in one call, with the empty-row fallback (what
     ``ops.fused_herm`` computes)."""

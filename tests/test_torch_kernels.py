@@ -121,13 +121,14 @@ def test_als_update_factor_matches_reference_kernel(seed, m, K, f):
 def test_wrappers_on_cpu_run_plain_and_count_no_launch():
     theta, idx, val, cnt = _problem(2, 16, 40, 16, 8)
     diag = np.ones(16, np.float32)
-    before = (port_herm.fused_herm_cuda.launches, port_solve.batch_solve_cuda.launches)
+    before = (port_herm.fused_herm_cuda.launches, port_herm.fused_herm_cuda.cuda_launches,
+              port_solve.batch_solve_cuda.launches)
     A, B = port_herm.fused_herm_cuda(*_t(theta, idx, val, cnt, diag))
     A0, B0 = port_herm.fused_herm_plain(*_t(theta, idx, val, cnt, diag))
     assert torch.equal(A, A0) and torch.equal(B, B0)
     x = port_solve.batch_solve_cuda(A, B)
     assert torch.equal(x, port_solve.batch_solve_plain(A, B))
-    assert (port_herm.fused_herm_cuda.launches,
+    assert (port_herm.fused_herm_cuda.launches, port_herm.fused_herm_cuda.cuda_launches,
             port_solve.batch_solve_cuda.launches) == before
     assert "hermitian" not in build.loaded()
     assert "batch_solve" not in build.loaded()
@@ -182,3 +183,55 @@ def test_herm_hbm_accum_matches_reference_ablation(m, n, K, f, seed):
         np.testing.assert_allclose(B1.numpy(), B2.numpy(), atol=2e-4, rtol=1e-4)
     with pytest.raises(ValueError, match="tk"):
         port_herm.herm_hbm_accum_cuda(*_t(theta, idx, val, cnt, diag), tk=0)
+
+
+@pytest.mark.parametrize("chunk", ["K", 7, 8])
+def test_fused_herm_chunked_plain_matches_reference_kernel(chunk):
+    """The split Hermitian's order of work: one chunk of K slots, a small
+    chunk with a ragged last chunk (40 % 7), and chunks of 8 with rows
+    whose cnt ends exactly on a chunk boundary."""
+    m, n, K, f = 13, 40, 40, 12
+    theta, idx, val, cnt = _problem(31, m, n, K, f)
+    chunk = K if chunk == "K" else chunk
+    cnt[:4] = [chunk, 2 * chunk, K, 0]
+    val = (val * (np.arange(K)[None] < cnt[:, None])).astype(np.float32)
+    diag = np.where(cnt > 0, 0.05 * cnt.astype(np.float32), 1.0).astype(np.float32)
+    A1, B1 = port_ref.fused_herm_chunked_plain(*_t(theta, idx, val, cnt, diag), chunk)
+    A0, B0 = ref_ops.fused_herm(jnp.asarray(theta), jnp.asarray(idx), jnp.asarray(val),
+                                jnp.asarray(cnt), 0.05, mode="kernel_interpret", tm=8,
+                                tk=8, f_mult=8)
+    np.testing.assert_allclose(A1.numpy(), np.asarray(A0), atol=2e-4, rtol=1e-4)
+    np.testing.assert_allclose(B1.numpy(), np.asarray(B0), atol=2e-4, rtol=1e-4)
+    A2, B2 = port_herm.fused_herm_plain(*_t(theta, idx, val, cnt, diag))
+    np.testing.assert_allclose(A1.numpy(), A2.numpy(), atol=2e-4, rtol=1e-4)
+    np.testing.assert_allclose(B1.numpy(), B2.numpy(), atol=2e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("nb", [16, 32])
+@pytest.mark.parametrize("f", [8, 33, 100])
+def test_batch_solve_blocked_plain_matches_reference_kernel(f, nb):
+    A, B = _spd(17 + f, 8, f, scale=0.3 if f < 64 else 0.1)
+    x0 = np.asarray(ref_ops.batch_solve(jnp.asarray(A), jnp.asarray(B),
+                                        mode="kernel_interpret", tb=8))
+    x1 = port_ref.batch_solve_blocked_plain(*_t(A, B), nb).numpy()
+    np.testing.assert_allclose(x1, x0, atol=5e-4, rtol=5e-4)
+    np.testing.assert_allclose(x1, port_solve.batch_solve_plain(*_t(A, B)).numpy(),
+                               atol=5e-4, rtol=5e-4)
+
+
+@pytest.mark.parametrize("nb", [16, 32])
+def test_batch_solve_blocked_plain_clamps_like_the_reference(nb):
+    """A near-singular system: coordinate 5 is decoupled with pivot 1e-30
+    and right-hand side 1e-30.  Exactly, x_5 = 1; with the reference's
+    clamps (rsqrt of max(d, 1e-20), divisors max(L_jj, 1e-20)) it is 1e10,
+    and the other coordinates are solved as usual."""
+    A, B = _spd(5, 8, 20)
+    A[:, 5, :] = 0.0
+    A[:, :, 5] = 0.0
+    A[:, 5, 5] = 1e-30
+    B[:, 5] = 1e-30
+    x0 = np.asarray(ref_ops.batch_solve(jnp.asarray(A), jnp.asarray(B),
+                                        mode="kernel_interpret", tb=8))
+    np.testing.assert_allclose(x0[:, 5], 1e10, rtol=1e-3)
+    x1 = port_ref.batch_solve_blocked_plain(*_t(A, B), nb).numpy()
+    np.testing.assert_allclose(x1, x0, atol=5e-4, rtol=5e-4)
