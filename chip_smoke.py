@@ -16,8 +16,12 @@ Phases, in order; any failure stops the run with a non-zero exit:
    and its split order of work; a near-singular system where the
    reference's clamps decide the solution;
 3b. the SGD tile sweep and the Fig. 7 Hermitian against their plain
-   versions at f in {8, 100, 128} (empty rows, ragged cnt, a forced heavy
-   item collision, a ragged last bin), and two SGD calls bit-equal;
+   versions at f in {8, 33, 100, 128} (empty rows, ragged cnt, a forced
+   heavy item collision split into parts, units of exactly P and P + 1
+   rows, an empty trailing slot, a ragged last bin), the SGD sweep also
+   against its planned plain version, one CUDA launch a call, two calls
+   bit-equal; one SGD epoch on a per-tile-K, degree-sorted grid, planned
+   kernel against plain;
 4. netflix-mini (tests/test_convergence.py's problem, seed 2): two ALS
    iterations in kernel mode and in plain mode from one injected state;
 4b. netflix-mini SGD: two epochs in kernel and plain mode from one
@@ -32,9 +36,11 @@ Phases, in order; any failure stops the run with a non-zero exit:
 7. the ALS kernels timed at that path's shapes (every bin of both sides
    of one iteration) against their plain versions and a library call;
 8. the SGD path: ``sgd_train`` (3 epochs, cold start, kernel mode) on
-   phase 6's ratings blocked g=4, with its launch count read around the
-   run; one stacked set call held against the plain version, and the
-   kernel timed per epoch against it;
+   phase 6's ratings blocked g=4, with its calls and CUDA launches read
+   around the run; the slot plans' build time, bytes and shape; each
+   set's call held against the plain version, and its planned in-place
+   call against both the plain version and the planned plain version;
+   the kernel timed per epoch on prebuilt plans, and the plain version;
 9. paper Fig. 7 on the card: ``herm_hbm_accum_cuda`` (tk=32) against
    ``fused_herm_cuda`` on phase 6's largest user bin.
 
@@ -115,6 +121,7 @@ def main() -> int:
     from repro_torch.kernels.hermitian import (fused_herm_cuda, fused_herm_plain,
                                                herm_hbm_accum_cuda, herm_hbm_accum_plain,
                                                split_slots)
+    from repro_torch.kernels import sgd_update
     from repro_torch.kernels.sgd_update import sgd_tile_cuda, sgd_tile_plain
     from repro_torch.sgd import blocking, hybrid
     from repro_torch.sgd import train as sgd
@@ -240,29 +247,44 @@ def main() -> int:
           "batch_solve disagrees with the clamped plain version on a near-singular system")
 
     # -- 3b. SGD sweep and Fig. 7 Hermitian vs plain, small shapes -----------------
-    for f in (8, 100, 128):
+    P = sgd_update.P_SPLIT
+    log(f"sgd_tile: units of at most P={P} rows")
+    for f in (8, 33, 100, 128):
         mb, nb, K = 1000, 300, 40
         x = (torch.rand(mb, f, generator=gen) * 0.3).to(dev)
         th = (torch.rand(nb, f, generator=gen) * 0.3).to(dev)
         idx = torch.randint(0, nb, (mb, K), generator=gen, dtype=torch.int32)
         heavy = mb * 3 // 4
-        idx[:heavy, 1] = 7                        # 750 rows hit item 7 in slot 1
-        cnt = torch.randint(0, K + 1, (mb,), generator=gen, dtype=torch.int32)
+        idx[:heavy, 1] = 7                        # 750 rows hit item 7 in slot 1: split
+        idx[:, 2] = torch.randint(20, nb, (mb,), generator=gen, dtype=torch.int32)
+        idx[:P, 2] = 11                           # a unit of exactly P rows
+        idx[P:2 * P + 1, 2] = 12                  # a group of P + 1 rows: two parts
+        cnt = torch.randint(0, K, (mb,), generator=gen, dtype=torch.int32)   # slot K-1 empty
         cnt[heavy:][torch.rand(mb - heavy, generator=gen) < 0.2] = 0
-        cnt[:heavy] = torch.clamp(cnt[:heavy], min=2)
+        cnt[:heavy] = torch.clamp(cnt[:heavy], min=3)
         val = torch.rand(mb, K, generator=gen) * 4 + 1
         idx, cnt, val = idx.to(dev), cnt.to(dev), val.to(dev)
+        plan = sgd_update.build_plan(idx, val, cnt)
+        units, splits = plan.units.cpu(), plan.splits.cpu()
+        check(K - 1 not in plan.slots.tolist() and bool(((units[:, 2] == P) & (units[:, 3] < 0)).any())
+              and bool((splits[:, 3] == P + 1).any()) and bool((splits[:, 3] >= heavy).any()),
+              f"phase 3b's plan lacks its cases at f={f}")
+        calls = sgd_tile_cuda.cuda_launches
         x1, t1 = sgd_tile_cuda(x, th, idx, val, cnt, 0.05, 0.05)
+        check(sgd_tile_cuda.cuda_launches - calls == 1, "an sgd_tile call is not one CUDA launch")
         x2, t2 = sgd_tile_cuda(x, th, idx, val, cnt, 0.05, 0.05)
-        x0, t0_ = sgd_tile_plain(x, th, idx, val, cnt, 0.05, 0.05)
-        log(f"sgd_tile f={f}: max|dx|={(x1 - x0).abs().max().item():.3g} "
-            f"max|dtheta|={(t1 - t0_).abs().max().item():.3g}, rerun bit-equal "
-            f"{torch.equal(x1, x2) and torch.equal(t1, t2)}")
-        check(torch.allclose(x1, x0, atol=SGD_TOL, rtol=SGD_TOL)
-              and torch.allclose(t1, t0_, atol=SGD_TOL, rtol=SGD_TOL),
-              f"sgd_tile disagrees with its plain version at f={f}")
+        for name, (x0, t0_) in (("plain", sgd_tile_plain(x, th, idx, val, cnt, 0.05, 0.05)),
+                                ("planned plain", kref.sgd_tile_planned_plain(
+                                    x, th, plan, 0.05, 0.05))):
+            log(f"sgd_tile f={f} vs {name}: max|dx|={(x1 - x0).abs().max().item():.3g} "
+                f"max|dtheta|={(t1 - t0_).abs().max().item():.3g}")
+            check(torch.allclose(x1, x0, atol=SGD_TOL, rtol=SGD_TOL)
+                  and torch.allclose(t1, t0_, atol=SGD_TOL, rtol=SGD_TOL),
+                  f"sgd_tile disagrees with its {name} version at f={f}")
         check(torch.equal(x1, x2) and torch.equal(t1, t2),
               f"two sgd_tile calls on the same inputs differ at f={f}")
+        log(f"  {plan.n_slots} slots planned of {K}, {units.shape[0]} units, "
+            f"{splits.shape[0]} split groups; one CUDA launch a call; rerun bit-equal")
         m, n, K = 257, 700, 300                   # 300 % 32: a ragged last bin
         theta = torch.randn(n, f, generator=gen).to(dev)
         idx = torch.randint(0, n, (m, K), generator=gen, dtype=torch.int32).to(dev)
@@ -277,6 +299,33 @@ def main() -> int:
               and torch.allclose(B1, B0, atol=HERM_ATOL, rtol=HERM_RTOL),
               f"herm_hbm_accum disagrees with its plain version at f={f}")
 
+    # a per-tile-K, degree-sorted grid: one epoch planned kernel vs plain
+    rng = np.random.default_rng(5)
+    m_, n_ = 3000, 900
+    pu, pv = np.arange(1, m_ + 1) ** -1.1, np.arange(1, n_ + 1) ** -0.8
+    rr = rng.choice(m_, size=60_000, p=pu / pu.sum())
+    cc = rng.choice(n_, size=60_000, p=pv / pv.sum())
+    _, keep = np.unique(rr * n_ + cc, return_index=True)
+    grid = blocking.block_coo(rr[keep], cc[keep], rng.uniform(1, 5, keep.size).astype(np.float32),
+                              m_, n_, 4, per_tile_k=True, degree_sort=True)
+    gt = sgd.grid_triplet(grid, dev)
+    st = sgd.sgd_state_from_numpy(rng.uniform(0, 0.3, (grid.g * grid.mb, 8)),
+                                  rng.uniform(0, 0.3, (grid.g * grid.nb, 8)), device=dev)
+    out = {}
+    for mode in ("kernel", "ref"):
+        scfg = sgd.SgdConfig(f=8, lam=0.05, mode=mode)
+        calls = sgd_tile_cuda.cuda_launches
+        out[mode] = sgd.sgd_epoch(st, gt, grid, scfg, 0.05, set_order=[2, 0, 3, 1])
+        if mode == "kernel":
+            check(sgd_tile_cuda.cuda_launches - calls == grid.g, "a planned set is not one launch")
+    dx = (out["kernel"].x - out["ref"].x).abs().max().item()
+    dt = (out["kernel"].theta - out["ref"].theta).abs().max().item()
+    log(f"sgd epoch, per-tile-K degree-sorted grid (tile K {sorted(set(grid.tile_K.ravel().tolist()))}"
+        f", {grid.nnz} ratings): planned kernel vs plain max|dx|={dx:.3g} max|dtheta|={dt:.3g}")
+    check(torch.allclose(out["kernel"].x, out["ref"].x, atol=SGD_TOL, rtol=SGD_TOL)
+          and torch.allclose(out["kernel"].theta, out["ref"].theta, atol=SGD_TOL, rtol=SGD_TOL),
+          "planned SGD epoch on a per-tile-K degree-sorted grid disagrees with plain")
+
     wrappers = {"fused_herm": fused_herm_cuda, "batch_solve": batch_solve_cuda,
                 "sgd_tile": sgd_tile_cuda, "herm_hbm_accum": herm_hbm_accum_cuda}
 
@@ -284,11 +333,12 @@ def main() -> int:
         for w in wrappers.values():
             w.launches = 0
         fused_herm_cuda.cuda_launches = 0
+        sgd_tile_cuda.cuda_launches = 0
 
     def read_counts(phase: str, path=("fused_herm", "batch_solve")) -> dict:
         counts = {name: w.launches for name, w in wrappers.items()}
-        log(f"{phase} launches: {counts}; fused_herm CUDA launches "
-            f"{fused_herm_cuda.cuda_launches}")
+        log(f"{phase} launches: {counts}; CUDA launches: fused_herm "
+            f"{fused_herm_cuda.cuda_launches}, sgd_tile {sgd_tile_cuda.cuda_launches}")
         for name in path:
             check(counts[name] > 0, f"{phase}: kernel {name} was never launched")
         return counts
@@ -536,6 +586,7 @@ def main() -> int:
                                   callback=on_epoch)
     torch.cuda.synchronize()
     counts["sgd_tile"] = read_counts("quarter-Netflix SGD", ("sgd_tile",))["sgd_tile"]
+    sgd_cuda_launches = sgd_tile_cuda.cuda_launches
     epoch_ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(scfg.epochs)]
     eval_ms = cuda_ms(torch, lambda: [float(als.rmse_padded(*sgd.eval_factors(sstate, grid), *t))
                                       for t in (test, train_eval)])
@@ -547,52 +598,97 @@ def main() -> int:
             f"test RMSE {h['test_rmse']:.4f}, peak device memory "
             f"{peak / 2**30:.2f} GiB ({peak} B), {c1 - c0} sgd_tile calls")
     log(f"  (each epoch includes its RMSE evaluation, {eval_ms:.1f} ms on the card; "
-        f"the first also uploads the grid)")
+        f"the first also uploads the grid and builds the slot plans); "
+        f"{sgd_cuda_launches / scfg.epochs:g} sgd_tile CUDA launches per epoch")
     train = [h["train_rmse"] for h in shist]
     check(all(np.isfinite(v) for h in shist for v in h.values()), f"non-finite RMSE: {shist}")
     check(bool(torch.isfinite(sstate.x).all()) and bool(torch.isfinite(sstate.theta).all()),
           "non-finite SGD factors")
     check(all(b < a for a, b in zip(train, train[1:])), f"SGD train RMSE did not fall: {train}")
 
-    # one epoch's stacked set calls at the trained factors, kernel vs plain
-    idx, val, cnt = sgd.grid_triplet(grid, dev)
+    # the slot plans (as sgd_train built them), timed and counted; one epoch's
+    # stacked set calls and planned set calls at the trained factors, kernel vs plain
+    gt = sgd.grid_triplet(grid, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plans = sgd.build_set_plans(gt, grid)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    n_units = sum(pl.units.shape[0] for pl in plans)
+    log(f"  SGD slot plans (P={P}): built in {plan_s:.3f} s (host clock, on the card), "
+        f"{sum(pl.nbytes for pl in plans)} B; per epoch {sum(pl.rows.numel() for pl in plans)} "
+        f"entries, {n_units} units, largest unit {max(int(pl.units[:, 2].max()) for pl in plans)} "
+        f"rows, largest group {max((int(pl.splits[:, 3].max()) for pl in plans), default=0)} "
+        f"rows; slots per set {[pl.n_slots for pl in plans]}, with split groups "
+        f"{[int((pl.split_offs.diff() > 0).sum()) for pl in plans]}")
+    idx, val, cnt = gt
     ar = torch.arange(g, device=dev)
     offs = (torch.arange(g, dtype=torch.int32, device=dev) * nb)[:, None, None]
     tb = sstate.theta.reshape(g, nb, f)
     lr0 = sgd.epoch_lr(scfg, 0)
-    sets, sgd_ops, sgd_bytes, err["sgd"] = [], 0.0, 0.0, 0.0
+    sets, sgd_ops, sgd_bytes, err["sgd"], live_all = [], 0.0, 0.0, 0.0, 0
     for s_ in range(g):
         j = (ar + s_) % g
         sets.append((sstate.x, tb[j].reshape(g * nb, f),
                      (idx[ar, j] + offs).reshape(g * mb, K), val[ar, j].reshape(g * mb, K),
                      cnt[ar, j].reshape(g * mb)))
         live = int(sets[-1][4].sum())
+        live_all += live
         sgd_ops += 6 * f * live
         sgd_bytes += 2 * sstate.x.numel() * 4 + 2 * tb.numel() * 4 + live * 8 + g * mb * 4
-    for s_, a in enumerate(sets):
-        x1, t1 = sgd_tile_cuda(*a, lr0, spec.lam)
+    def sgd_close(x1, t1, x0, t0_):
+        return (torch.allclose(x1, x0, atol=SGD_TOL, rtol=SGD_TOL)
+                and torch.allclose(t1, t0_, atol=SGD_TOL, rtol=SGD_TOL))
+
+    def sgd_diff(x1, t1, x0, t0_):
+        return max((x1 - x0).abs().max().item(), (t1 - t0_).abs().max().item())
+
+    for s_, (a, pl) in enumerate(zip(sets, plans)):
+        j = (ar + s_) % g
         x0, t0_ = sgd_tile_plain(*a, lr0, spec.lam)
-        e = max((x1 - x0).abs().max().item(), (t1 - t0_).abs().max().item())
-        log(f"  set {s_}: {int(a[4].sum())} live ratings, kernel vs plain max abs err {e:.3g}")
-        check(torch.allclose(x1, x0, atol=SGD_TOL, rtol=SGD_TOL)
-              and torch.allclose(t1, t0_, atol=SGD_TOL, rtol=SGD_TOL),
+        x1, t1 = sgd_tile_cuda(*a, lr0, spec.lam)
+        e = sgd_diff(x1, t1, x0, t0_)
+        check(sgd_close(x1, t1, x0, t0_),
               f"sgd_tile disagrees with its plain version on set {s_} at full width")
-        err["sgd"] = max(err["sgd"], e)
+        del x1, t1
+        # the main path's call: the set's plan in global ids, in place on
+        # the whole X and Theta; held against the independent plain result
+        # (Theta's blocks in the set's order) and against the planned mirror
+        x1, t1 = sstate.x.clone(), sstate.theta.clone()
+        sgd_update.sgd_tile_planned_(x1, t1, pl, lr0, spec.lam)
+        t1_set = t1.reshape(g, nb, f)[j].reshape(g * nb, f)
+        e2 = sgd_diff(x1, t1_set, x0, t0_)
+        check(sgd_close(x1, t1_set, x0, t0_),
+              f"the planned in-place call disagrees with the plain version on set {s_}")
+        del x0, t0_, t1_set
+        x0, t0_ = kref.sgd_tile_planned_plain(sstate.x, sstate.theta, pl, lr0, spec.lam)
+        e3 = sgd_diff(x1, t1, x0, t0_)
+        log(f"  set {s_}: {int(a[4].sum())} live ratings, max abs err: kernel vs plain {e:.3g}, "
+            f"planned in place vs plain {e2:.3g}, vs planned plain {e3:.3g}")
+        check(sgd_close(x1, t1, x0, t0_),
+              f"sgd_tile disagrees with its planned plain version on set {s_} at full width")
+        err["sgd"] = max(err["sgd"], e, e2, e3)
         del x1, t1, x0, t0_
-    sgd_ms = cuda_ms(torch, lambda: [sgd_tile_cuda(*a, lr0, spec.lam) for a in sets])
+    # the kernel per epoch on prebuilt plans (the plans' build not counted)
+    xc, tc = sstate.x.clone(), sstate.theta.clone()
+    sgd_ms = cuda_ms(torch, lambda: [sgd_update.sgd_tile_planned_(xc, tc, pl, lr0, spec.lam)
+                                     for pl in plans])
     sgd_plain_ms = cuda_ms(torch, lambda: [sgd_tile_plain(*a, lr0, spec.lam) for a in sets])
     gb, gb_by = bound(sgd_ops, sgd_bytes)
-    log(f"per SGD epoch at quarter-Netflix: sgd_tile {sgd_ms:.2f} ms ({g} calls, "
-        f"{2 * K * g} CUDA launches; plain {sgd_plain_ms:.2f}, bound {gb:.3f} by {gb_by}); "
+    floor_ms = live_all * 8 * f / PEAK_HBM_BYTES * 1e3
+    log(f"per SGD epoch at quarter-Netflix: sgd_tile {sgd_ms:.3f} ms on prebuilt plans "
+        f"({g} calls, {sgd_cuda_launches / scfg.epochs:g} CUDA launches; plain {sgd_plain_ms:.2f}, "
+        f"bound {gb:.3f} by {gb_by}, x read+write floor {floor_ms:.3f}); "
         f"no single PyTorch call computes the slot loop, so no library time")
     kernels.append(
         {"name": "sgd_tile", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/sgd_update.cu",
          "replaces": "src/repro/kernels/sgd_update.py:81",
-         "launches": counts["sgd_tile"], "max_abs_err": err["sgd"],
+         "launches": counts["sgd_tile"], "cuda_launches": sgd_cuda_launches,
+         "max_abs_err": err["sgd"],
          "ms": sgd_ms, "plain_ms": sgd_plain_ms, "bound_ms": gb,
          "bound_by": gb_by, "library_ms": None})
-    del sets, idx, val, cnt, train_eval, r_full
+    del sets, plans, gt, idx, val, cnt, train_eval, r_full, xc, tc
 
     # -- 9. Fig. 7: device-memory vs register accumulator, largest user bin ----------
     b = max(rb.bins, key=lambda e: e.m)

@@ -135,3 +135,44 @@ def sgd_block_ref(
             - lam * theta * (hits > 0).to(x.dtype)[:, None]
         x, theta = x + lr * dx, theta + lr * dt
     return x, theta
+
+
+def sgd_tile_planned_plain(x, theta, plan, lr: float, lam: float):
+    """:func:`sgd_block_ref` in the order of work of the planned SGD
+    kernel, from a ``sgd_update.SlotPlan``: per slot, each unit's rows in
+    order with the unit's fp32 sum of ``e * x_u`` taken in row order; a
+    whole group then updates its item, a part leaves its sum in scratch;
+    then each split group adds its parts' sums in part order and updates
+    its item.  Returns fresh tensors.  For tests, ``chip_smoke.py`` and
+    the CPU side of ``sgd_update.sgd_tile_planned_``."""
+    x, theta = x.clone(), theta.clone()
+    f = x.shape[1]
+    scratch = torch.zeros((plan.n_scratch, f), dtype=x.dtype, device=x.device)
+    uo, so = plan.unit_offs.tolist(), plan.split_offs.tolist()
+
+    def step(t, total, h):
+        return t + lr * (total / h.to(t.dtype)[:, None] - lam * t)
+
+    for s in range(plan.n_slots):
+        item, start, ln, scr = plan.units[uo[s]:uo[s + 1]].long().unbind(1)
+        tv = theta[item]                                 # the slot's theta, before it
+        acc = torch.zeros((item.numel(), f), dtype=x.dtype, device=x.device)
+        for q in range(int(ln.max())):
+            on = ln > q
+            ent = start[on] + q
+            rows = plan.rows[ent].long()
+            xv, t = x[rows], tv[on]
+            e = plan.vals[ent] - torch.sum(xv * t, dim=-1)
+            acc[on] = acc[on] + e[:, None] * xv
+            x[rows] = xv + lr * (e[:, None] * t - lam * xv)
+        whole = scr < 0
+        theta[item[whole]] = step(tv[whole], acc[whole], ln[whole])
+        scratch[scr[~whole]] = acc[~whole]
+        item, first, parts, h = plan.splits[so[s]:so[s + 1]].long().unbind(1)
+        if item.numel():
+            total = torch.zeros((item.numel(), f), dtype=x.dtype, device=x.device)
+            for q in range(int(parts.max())):
+                on = parts > q
+                total[on] = total[on] + scratch[first[on] + q]
+            theta[item] = step(theta[item], total, h)
+    return x, theta

@@ -9,9 +9,12 @@ touches disjoint X and Theta rows, so the set's tiles stack into ONE
 permuted ``[t*nb]`` item blocks (``sgd_tiles_update``).
 
 The reference's jitted ``lax.scan`` over sets becomes a Python loop over
-sets, one stacked call per same-K group of the set's tiles: a uniform grid
-has one group per set (one call per set, like the scan body), a per-tile-K
-grid one call per distinct tile K, each sliced to that K.
+sets.  In ``"kernel"`` mode each set is one planned call on the whole X
+and Theta in place: :func:`build_set_plans` turns each diagonal set into a
+``SlotPlan`` in global row and item ids, once per run (the plans depend
+only on the grid), and an epoch clones X and Theta once and sweeps them.
+In ``"ref"`` mode each set is one stacked call per same-K group of its
+tiles, each sliced to that K (a uniform grid has one group per set).
 
 The reference draws its initial state and set orders from ``jax.random``,
 which torch cannot reproduce: parity runs inject the reference's state
@@ -28,7 +31,8 @@ import torch
 
 from repro_torch.backend import DeviceLike, Mode, default_mode, resolve_device
 from repro_torch.core.objective import rmse_padded
-from repro_torch.kernels.sgd_update import sgd_block_update
+from repro_torch.kernels.sgd_update import (P_SPLIT, SlotPlan, build_plan,
+                                            sgd_block_update, sgd_tile_planned_)
 from repro_torch.sgd.blocking import BlockGrid
 from repro_torch.training.optimizer import lr_schedule
 
@@ -108,9 +112,10 @@ def epoch_set_order(seed: int, epoch: int, g: int) -> torch.Tensor:
     return torch.randperm(g, generator=torch.Generator().manual_seed(key))
 
 
-def sgd_tiles_update(x, theta, idx, val, cnt, lr, lam, *, mode):
+def sgd_tiles_update(x, theta, idx, val, cnt, lr, lam):
     """One batch-Hogwild sweep over t mutually DISJOINT tiles, stacked
-    into a single ``sgd_block_update`` call.
+    into a single plain ``sgd_block_update`` call: the path of mode
+    ``"ref"`` only (mode ``"kernel"`` runs the set plans).
 
     ``x [t, mb, f]`` / ``theta [t, nb, f]`` are tile k's two factor
     blocks; ``idx [t, mb, K]`` holds block-local item indices.  Shifting
@@ -126,7 +131,7 @@ def sgd_tiles_update(x, theta, idx, val, cnt, lr, lam, *, mode):
     x2, t2 = sgd_block_update(
         x.reshape(t * mb, f), theta.reshape(t * nb, f),
         (idx + offs).reshape(t * mb, K), val.reshape(t * mb, K),
-        cnt.reshape(t * mb), lr, lam, mode=mode)
+        cnt.reshape(t * mb), lr, lam, mode="ref")
     return x2.reshape(t, mb, f), t2.reshape(t, nb, f)
 
 
@@ -158,14 +163,31 @@ def _grouped_epoch(xb, tb, idx, val, cnt, set_order, lr, grid: BlockGrid,
             jj = torch.from_numpy(jj).to(xb.device)
             x_new, t_new = sgd_tiles_update(
                 xb[ii], tb[jj], idx[ii, jj, :, :k_t], val[ii, jj, :, :k_t],
-                cnt[ii, jj], lr, cfg.lam, mode=cfg.mode)
+                cnt[ii, jj], lr, cfg.lam)
             xb[ii] = x_new
             tb[jj] = t_new
     return xb, tb
 
 
+def build_set_plans(gt, grid: BlockGrid, *, p: int = P_SPLIT) -> list[SlotPlan]:
+    """One ``SlotPlan`` per diagonal set s (tiles (i, (i+s) % g)), in
+    global ids: tile (i, j)'s row u is X's row ``i*mb + u`` and its item v
+    Theta's row ``j*nb + v``.  Only live entries are planned, so per-tile-K
+    and degree-sorted grids need nothing special."""
+    idx, val, cnt = gt
+    g, mb, nb = grid.g, grid.mb, grid.nb
+    ar = torch.arange(g, device=idx.device)
+    plans = []
+    for s in range(g):
+        j = (ar + s) % g
+        items = idx[ar, j] + (j.to(idx.dtype) * nb)[:, None, None]
+        plans.append(build_plan(items.reshape(g * mb, -1), val[ar, j].reshape(g * mb, -1),
+                                cnt[ar, j].reshape(g * mb), p=p))
+    return plans
+
+
 def sgd_epoch(state: SgdState, gt, grid: BlockGrid, cfg: SgdConfig,
-              lr: float, *, set_order=None) -> SgdState:
+              lr: float, *, set_order=None, plan=None) -> SgdState:
     """One full epoch: g diagonal sets x g independent tiles per set.
 
     ``grid`` supplies the block shape — ``nb`` in particular must NOT be
@@ -173,7 +195,9 @@ def sgd_epoch(state: SgdState, gt, grid: BlockGrid, cfg: SgdConfig,
     beyond ``g*nb`` would mis-slice every theta block), so shapes are
     checked at entry instead.  ``set_order`` is the epoch's set
     permutation (:func:`epoch_set_order`, or the reference's as numpy);
-    None keeps the canonical 0..g-1 order.
+    None keeps the canonical 0..g-1 order.  ``plan`` is the list of
+    :func:`build_set_plans` for ``"kernel"`` mode, built here when None.
+    The caller's ``state`` is never modified.
     """
     idx, val, cnt = gt
     g, mb, nb, f = grid.g, grid.mb, grid.nb, cfg.f
@@ -182,13 +206,18 @@ def sgd_epoch(state: SgdState, gt, grid: BlockGrid, cfg: SgdConfig,
         raise ValueError(f"shapes do not fit the grid (g={g}, mb={mb}, nb={nb}, f={f}): "
                          f"idx {tuple(idx.shape)}, x {tuple(state.x.shape)}, "
                          f"theta {tuple(state.theta.shape)}")
-    if set_order is None:
-        set_order = range(g)
-    xb, tb = _grouped_epoch(
-        state.x.reshape(g, mb, f), state.theta.reshape(g, nb, f),
-        idx, val, cnt, np.asarray(set_order).tolist(), lr, grid, cfg)
-    return SgdState(x=xb.reshape(g * mb, f), theta=tb.reshape(g * nb, f),
-                    epoch=state.epoch + 1)
+    order = np.asarray(range(g) if set_order is None else set_order).tolist()
+    if cfg.mode == "ref":
+        xb, tb = _grouped_epoch(state.x.reshape(g, mb, f), state.theta.reshape(g, nb, f),
+                                idx, val, cnt, order, lr, grid, cfg)
+        return SgdState(x=xb.reshape(g * mb, f), theta=tb.reshape(g * nb, f),
+                        epoch=state.epoch + 1)
+    if plan is None:
+        plan = build_set_plans(gt, grid)
+    x, theta = state.x.clone(), state.theta.clone()
+    for s in order:
+        sgd_tile_planned_(x, theta, plan[int(s)], lr, cfg.lam)
+    return SgdState(x=x, theta=theta, epoch=state.epoch + 1)
 
 
 def sgd_train(
@@ -221,11 +250,12 @@ def sgd_train(
             state = SgdState(x=restored["x"], theta=restored["theta"], epoch=ck_epoch)
             start = ck_epoch
     gt = grid_triplet(grid, state.x.device)
+    plan = build_set_plans(gt, grid) if cfg.mode == "kernel" else None
     history: list[dict] = []
     for ep in range(start, cfg.epochs):
         lr = epoch_lr(cfg, ep)
         state = sgd_epoch(state, gt, grid, cfg, lr,
-                          set_order=epoch_set_order(cfg.seed, ep, grid.g))
+                          set_order=epoch_set_order(cfg.seed, ep, grid.g), plan=plan)
         rec = {"epoch": ep + 1, "lr": lr}
         x, th = eval_factors(state, grid)
         if test is not None:

@@ -21,6 +21,7 @@ from repro.sgd import train as ref_train  # noqa: E402
 from repro.sparse import synth as ref_synth  # noqa: E402
 from repro.training.optimizer import lr_schedule as ref_lr_schedule  # noqa: E402
 from repro_torch.core import als as port_als  # noqa: E402
+from repro_torch.kernels import ref as port_kref  # noqa: E402
 from repro_torch.kernels import sgd_update as port_sgd  # noqa: E402
 from repro_torch.sgd import blocking as port_blocking  # noqa: E402
 from repro_torch.sgd import hybrid as port_hybrid  # noqa: E402
@@ -88,6 +89,117 @@ def test_sgd_update_leaves_empty_rows_and_unhit_items_unchanged():
     x2, t2 = port_sgd.sgd_block_update(x, th, idx, val, cnt, 0.1, 0.05)
     assert torch.equal(x2[[0, 2, 3]], x[[0, 2, 3]]) and not torch.equal(x2[1], x[1])
     assert torch.equal(t2[[0, 1, 3]], th[[0, 1, 3]]) and not torch.equal(t2[2], th[2])
+
+
+def _plan_entries(plan):
+    """(slot, item, row) of every planned entry, walked through the units."""
+    out = []
+    slots = plan.slots.tolist()
+    uo = plan.unit_offs.tolist()
+    for s, k in enumerate(slots):
+        for item, start, ln, _ in plan.units[uo[s]:uo[s + 1]].tolist():
+            out += [(k, item, r) for r in plan.rows[start:start + ln].tolist()]
+    return out
+
+
+def _check_plan(plan, idx, cnt, row_ids, p):
+    """Every live (row, slot) once, no dead slot, rows ascending within a
+    group, parts of at most p rows summed by their group in part order."""
+    live = {(k, int(idx[u, k]), int(row_ids[u])) for u in range(idx.shape[0])
+            for k in range(int(cnt[u]))}
+    got = _plan_entries(plan)
+    assert len(got) == len(live) == plan.rows.numel() and set(got) == live
+    assert plan.slots.tolist() == sorted({k for k, _, _ in live})
+    assert plan.units[:, 2].min() >= 1 and plan.units[:, 2].max() <= p
+    # the plan's entry order is (slot, item, row): ascending rows in a group
+    ordered = [None] * len(got)
+    for item, start, ln, _ in plan.units.tolist():
+        for i in range(ln):
+            ordered[start + i] = item
+    keys = [(k, it, r) for (k, _, r), it in zip(sorted(got), ordered)]
+    assert keys == sorted(got)
+    so, uo = plan.split_offs.tolist(), plan.unit_offs.tolist()
+    for s in range(plan.n_slots):
+        units = plan.units[uo[s]:uo[s + 1]].tolist()
+        assert [u[2] for u in units] == sorted((u[2] for u in units), reverse=True)
+        parts = {}
+        for item, start, ln, scr in units:
+            if scr >= 0:
+                parts.setdefault(item, []).append((start, ln, scr))
+        splits = plan.splits[so[s]:so[s + 1]].tolist()
+        assert sorted(parts) == sorted(g[0] for g in splits)
+        for item, first, n_parts, h in splits:
+            ps = sorted(parts[item])
+            assert [scr for _, _, scr in ps] == list(range(first, first + n_parts))
+            assert sum(ln for _, ln, _ in ps) == h > p and first + n_parts <= plan.n_scratch
+            assert all(ps[i][0] + ps[i][1] == ps[i + 1][0] for i in range(len(ps) - 1))
+
+
+@pytest.mark.parametrize("p", [1, 3, 64])
+@pytest.mark.parametrize("collide", [False, True])
+def test_build_plan_lists_each_live_entry_once(p, collide):
+    x, th, idx, val, cnt = _tile(11 + p, 64, 12, 4, 10, collide)
+    cnt[:5] = 0
+    cnt = np.minimum(cnt, 8).astype(np.int32)           # slots 8, 9 dead
+    plan = port_sgd.build_plan(*(torch.from_numpy(a) for a in (idx, val, cnt)), p=p)
+    _check_plan(plan, idx, cnt, np.arange(64), p)
+    assert plan.n_slots <= 8 and plan.rows.dtype == torch.int32
+    np.testing.assert_array_equal(
+        _np(plan.vals), [val[r, k] for k, _, r in sorted(_plan_entries(plan))])
+    if collide and p < 48:
+        assert plan.splits.shape[0] > 0
+    assert plan.nbytes == sum(t.numel() * 4 for t in plan[:7])
+
+
+@pytest.mark.parametrize("layout", ["uniform", "per_tile_k_sorted"])
+def test_set_plans_use_global_ids(problem, layout):
+    kw = {} if layout == "uniform" else dict(per_tile_k=True, degree_sort=True)
+    grid = port_blocking.block_ell(problem[0], 4, **kw)
+    gt = port_train.grid_triplet(grid, "cpu")
+    plans = port_train.build_set_plans(gt, grid, p=5)
+    g, mb, nb = grid.g, grid.mb, grid.nb
+    assert len(plans) == g and sum(p.rows.numel() for p in plans) == grid.nnz
+    for s, plan in enumerate(plans):
+        j = [(i + s) % g for i in range(g)]
+        idx = np.concatenate([grid.idx[i, j[i]] + j[i] * nb for i in range(g)])
+        cnt = np.concatenate([grid.cnt[i, j[i]] for i in range(g)])
+        _check_plan(plan, idx, cnt, np.arange(g * mb), 5)
+        assert 0 <= int(plan.rows.min()) and int(plan.rows.max()) < g * mb
+        assert 0 <= int(plan.units[:, 0].min()) and int(plan.units[:, 0].max()) < g * nb
+
+
+@pytest.mark.parametrize("mb,nb,f,K,collide,p", [
+    (12, 10, 5, 9, False, 2), (16, 24, 4, 17, False, 64), (64, 12, 6, 10, True, 4),
+    (64, 12, 6, 10, True, 7), (64, 12, 8, 10, True, 64)])
+def test_sgd_tile_planned_plain_matches_reference(mb, nb, f, K, collide, p):
+    x, th, idx, val, cnt = _tile(mb * 100 + K + p, mb, nb, f, K, collide)
+    args = (jnp.asarray(x), jnp.asarray(th), jnp.asarray(idx), jnp.asarray(val),
+            jnp.asarray(cnt), 0.05, 0.01)
+    refs = [ref_block_update(*args, mode="ref"),
+            ref_block_update(*args, mode="kernel_interpret",
+                             row_mult=8, col_mult=8, f_mult=8)]
+    tx, tth, tidx, tval, tcnt = (torch.from_numpy(a) for a in (x, th, idx, val, cnt))
+    plan = port_sgd.build_plan(tidx, tval, tcnt, p=p)
+    if collide and p < 48:
+        assert plan.splits.shape[0] > 0                     # a group was split
+    xp, tp = port_kref.sgd_tile_planned_plain(tx, tth, plan, 0.05, 0.01)
+    xi, ti = tx.clone(), tth.clone()
+    port_sgd.sgd_tile_planned_(xi, ti, plan, 0.05, 0.01)   # CPU: the mirror, in place
+    assert torch.equal(xi, xp) and torch.equal(ti, tp)
+    for xr, tr in refs:
+        np.testing.assert_allclose(_np(xp), np.asarray(xr), atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(_np(tp), np.asarray(tr), atol=1e-5, rtol=1e-5)
+
+
+def test_sgd_tile_planned_rejects_bad_inputs():
+    x, th, idx, val, cnt = (torch.from_numpy(a) for a in _tile(2, 8, 6, 4, 5))
+    plan = port_sgd.build_plan(idx, val, cnt)
+    with pytest.raises(ValueError, match="contiguous"):
+        port_sgd.sgd_tile_planned_(torch.zeros(4, 8).t(), th, plan, 0.1, 0.05)
+    with pytest.raises(ValueError, match="outside"):
+        port_sgd.sgd_tile_planned_(torch.zeros(8, 129), torch.zeros(6, 129), plan, 0.1, 0.05)
+    with pytest.raises(ValueError, match="at least 1"):
+        port_sgd.build_plan(idx, val, cnt, p=0)
 
 
 def test_sgd_tile_is_pure_and_rejects_bad_inputs():
@@ -246,8 +358,11 @@ def als_rmse(problem):
     return hist[-1]["test_rmse"]
 
 
+@pytest.mark.parametrize("p", [None, 3])
 @pytest.mark.parametrize("layout", ["uniform", "per_tile_k_sorted"])
-def test_two_epochs_match_reference(problem, layout):
+def test_two_epochs_match_reference(problem, layout, p):
+    """``p``: the planned kernel path's unit size (None: the module's
+    default; 3 splits most collision groups)."""
     r = problem[0]
     kw = {} if layout == "uniform" else dict(per_tile_k=True, degree_sort=True)
     grid_r = ref_blocking.block_ell(r, 4, **kw)
@@ -261,13 +376,16 @@ def test_two_epochs_match_reference(problem, layout):
     for mode in ("kernel", "ref"):
         pc = port_train.SgdConfig(f=MINI.f, lam=MINI.lam, lr=0.1, epochs=2, mode=mode,
                                   device="cpu")
+        plan = None if p is None else port_train.build_set_plans(gt_p, grid_p, p=p)
+        if plan is not None:
+            assert sum(pl.splits.shape[0] for pl in plan) > 0
         s_ref, s_port = s, state
         for ep in range(2):
             order = ref_train.epoch_set_order(rc.seed, ep, grid_r.g)
             lr = ref_train.epoch_lr(rc, ep)
             s_ref = ref_train.sgd_epoch(s_ref, gt_r, grid_r, rc, lr, set_order=order)
             s_port = port_train.sgd_epoch(s_port, gt_p, grid_p, pc, lr,
-                                          set_order=np.asarray(order))
+                                          set_order=np.asarray(order), plan=plan)
         assert s_port.epoch == 2
         np.testing.assert_allclose(_np(s_port.x), np.asarray(s_ref.x), atol=1e-5, rtol=1e-5)
         np.testing.assert_allclose(_np(s_port.theta), np.asarray(s_ref.theta),
@@ -276,6 +394,17 @@ def test_two_epochs_match_reference(problem, layout):
         xp, tp = port_train.factors_np(s_port, grid_p)
         np.testing.assert_allclose(xp, xr, atol=1e-5, rtol=1e-5)
         np.testing.assert_allclose(tp, tr, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["kernel", "ref"])
+def test_sgd_epoch_leaves_the_callers_state_unchanged(problem, mode):
+    grid = port_blocking.block_ell(problem[0], 4)
+    cfg = port_train.SgdConfig(f=MINI.f, lam=MINI.lam, mode=mode, device="cpu")
+    state = port_train.sgd_init(grid, cfg)
+    before = (state.x.clone(), state.theta.clone())
+    out = port_train.sgd_epoch(state, port_train.grid_triplet(grid, "cpu"), grid, cfg, 0.1)
+    assert torch.equal(state.x, before[0]) and torch.equal(state.theta, before[1])
+    assert not torch.equal(out.x, before[0]) and not torch.equal(out.theta, before[1])
 
 
 def test_sgd_epoch_rejects_overpadded_factors(problem):
