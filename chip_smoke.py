@@ -42,7 +42,27 @@ Phases, in order; any failure stops the run with a non-zero exit:
    call against both the plain version and the planned plain version;
    the kernel timed per epoch on prebuilt plans, and the plain version;
 9. paper Fig. 7 on the card: ``herm_hbm_accum_cuda`` (tk=32) against
-   ``fused_herm_cuda`` on phase 6's largest user bin.
+   ``fused_herm_cuda`` on phase 6's largest user bin;
+10a. out-of-core streaming ALS (``outofcore.run_streaming_als``) on
+   netflix-mini in kernel mode: the uniform store at q=4 and the binned
+   store at n_bins=4, 3 iterations from ``als_init``, per-iteration RMSE
+   within 1e-4 of in-core ``als_train`` (tests/test_outofcore.py:181),
+   binned factors within 1e-5 of uniform (:474), both ledgers all ok; a
+   kill after wave 3 (solve-X) and after wave 6 (accumulate-Theta) and a
+   resume from the checkpoints, bit-equal to the uninterrupted run;
+10b. streaming ALS at quarter-Netflix, f=100, on phase 6's ratings: the
+   binned store (n_bins=8), q the smallest power of two >= 8 whose eq. (8)
+   plan fits a device capped at 1.5 GiB (standing in for a problem larger
+   than the card), 3 iterations with prefetch depth 2, per-iteration RMSE
+   within 1e-4 of phase 6, an all-ok ledger; both kernels against their
+   plain versions at the shapes of that run (every bin of solve-X wave 0,
+   every bin of every R^T batch with the heavy items split, the solve of
+   the accumulated Theta systems, which must reproduce the run's Theta);
+   the store's build time, the host's peak RSS and the resident set it
+   added, ms per iteration (CUDA events and wall clock),
+   the phase breakdown (prefetch stall against overlapped load), bytes
+   streamed and the rate they imply, and the allocator's peak beside the
+   schedule's capacity and the modelled meter's peak.
 
 The second-to-last line of output is a JSON ``kernels`` record; the last
 line is ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
@@ -52,8 +72,10 @@ result.
 from __future__ import annotations
 
 import json
+import resource
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -69,6 +91,8 @@ HERM_ATOL, HERM_RTOL = 2e-4, 1e-4      # tests/test_kernels.py:44
 SOLVE_TOL = 5e-4                       # tests/test_kernels.py:77
 TRAJ_TOL = 3e-3                        # tests/test_convergence.py:80
 SGD_TOL = 1e-5                         # tests/test_sgd.py:97, :285
+STREAM_RMSE_TOL = 1e-4                 # tests/test_outofcore.py:181-182
+BINNED_TOL = 1e-5                      # tests/test_outofcore.py:474-475
 SOLVE_NB = 16                          # kNB of csrc/batch_solve.cu
 PLAIN_CHUNK_ELEMS = 1 << 28            # gathered floats per plain-version chunk
 
@@ -84,6 +108,15 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def rss_now() -> int:
+    """The process's resident set now, in bytes (``VmRSS``), where
+    ``ru_maxrss`` gives only its high-water mark."""
+    for line in Path("/proc/self/status").read_text().splitlines():
+        if line.startswith("VmRSS:"):
+            return int(line.split()[1]) * 1024
+    return -1
 
 
 def cuda_ms(torch, fn, reps: int = 3) -> float:
@@ -115,6 +148,7 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.core import als
+    from repro_torch.core.partition import plan_for
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import ref as kref
     from repro_torch.kernels.batch_solve import batch_solve_cuda, batch_solve_plain
@@ -123,6 +157,10 @@ def main() -> int:
                                                split_slots)
     from repro_torch.kernels import sgd_update
     from repro_torch.kernels.sgd_update import sgd_tile_cuda, sgd_tile_plain
+    from repro_torch.obs.ledger import validate_ledger
+    from repro_torch.obs.report import render_ledger
+    from repro_torch.outofcore import (FactorStore, RatingStore, SimulatedFailure,
+                                       build_schedule, run_streaming_als)
     from repro_torch.sgd import blocking, hybrid
     from repro_torch.sgd import train as sgd
     from repro_torch.sparse import synth
@@ -453,8 +491,10 @@ def main() -> int:
     state, hist = als.als_train_binned(rb, rtb, cfg, test=test, callback=on_iteration)
     torch.cuda.synchronize()
     counts = read_counts("quarter-Netflix")
+    incore_hist = hist
     peak = torch.cuda.max_memory_allocated()
     iter_ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(cfg.iters)]
+    incore_iter_ms = iter_ms
     # the in-loop evaluation, on bins already on the card as in the loop
     r_bins = als._device_bins(rb, dev)
     eval_ms = cuda_ms(torch, lambda: (als._rmse_bins(state.x, state.theta, r_bins),
@@ -739,6 +779,281 @@ def main() -> int:
          "launches": counts["herm_hbm_accum"], "max_abs_err": err["hbm"],
          "ms": hbm_ms, "plain_ms": hbm_plain_ms, "bound_ms": hb9,
          "bound_by": hb9_by, "library_ms": hbm_lib_ms})
+
+    del idx, val, cnt, diag
+
+    # -- 10a. out-of-core streaming ALS, netflix-mini --------------------------------
+    def check_ledger(tel, what: str) -> None:
+        summary = validate_ledger(tel.ledger)
+        bad = [r_["name"] for r_ in tel.ledger["records"] if not r_["ok"]]
+        check(summary["ok"] and not bad, f"{what}: ledger records fail: {bad}")
+
+    def plan_store(store, m_, nnz, f_, q, hbm, depth=2):
+        fill = (dict(bin_fills=store.bin_fill_pairs()) if store.n_bins > 1
+                else dict(fill=store.worst_fill))
+        return plan_for(m_, store.n, nnz, f_, p=1, q=q, n_data=1,
+                        eps=store.n * (f_ * f_ + 3 * f_ + 1) * 4, buffers=depth + 2,
+                        hbm_bytes=hbm, **fill)
+
+    spec = synth.SynthSpec("netflix-mini", m=768, n=160, nnz=40_000, f=8, lam=0.05)
+    r, rt, rte, _ = synth.make_synthetic_ratings(spec, seed=2, noise=0.1)
+    cfg = als.AlsConfig(f=spec.f, lam=spec.lam, iters=3)
+    check(cfg.mode == "kernel", f"default mode on the card is {cfg.mode}")
+    st0 = als.als_init(r.m, rt.m, cfg)
+    _, ref_hist = als.als_train(triplet(r), triplet(rt), r.m, rt.m, cfg,
+                                test=triplet(rte), init=st0)
+    streams = {}
+    launches = {"fused_herm": 0, "batch_solve": 0}
+
+    def fresh_init(store):      # the driver writes solved rows into its factors
+        x0 = np.zeros((store.m_pad, spec.f), np.float32)
+        x0[:r.m] = st0.x.cpu().numpy()
+        return FactorStore.from_arrays(x0, st0.theta)
+
+    for name, n_bins in (("uniform", 1), ("binned", 4)):
+        store = RatingStore(r, q=4, n_bins=n_bins)
+        sched = build_schedule(plan_store(store, r.m, r.nnz, spec.f, 4, 1 << 30),
+                               r.m, rt.m, n_data=1)
+        reset_counts()
+        fac, shist, tel = run_streaming_als(store, sched, cfg, factors=fresh_init(store),
+                                            train_eval=triplet(r), test_eval=triplet(rte))
+        torch.cuda.synchronize()
+        c10 = read_counts(f"netflix-mini streaming {name}")
+        for k_ in launches:
+            launches[k_] += c10[k_]
+        check_ledger(tel, f"netflix-mini streaming {name}")
+        d_rmse = max(max(abs(a["train_rmse"] - b["train_rmse"]),
+                         abs(a["test_rmse"] - b["test_rmse"]))
+                     for a, b in zip(shist, ref_hist))
+        log(f"netflix-mini streaming {name} (q=4, {len(sched.waves)} waves per half): "
+            f"test RMSE {[round(h['test_rmse'], 5) for h in shist]}, max |dRMSE| vs "
+            f"in-core {d_rmse:.3g}; {tel.waves_run} waves, {tel.bytes_streamed} B streamed, "
+            f"ledger {len(tel.ledger['records'])} records all ok")
+        check(len(shist) == len(ref_hist) and d_rmse <= STREAM_RMSE_TOL,
+              f"netflix-mini streaming {name} RMSE is {d_rmse} from in-core")
+        streams[name] = (store, sched, fac)
+    fu, fb = streams["uniform"][2], streams["binned"][2]
+    dfac = max(np.abs(fb.x - fu.x).max(), np.abs(fb.theta - fu.theta).max())
+    log(f"netflix-mini streaming binned vs uniform: max |dfactor| {dfac:.3g}")
+    check(dfac <= BINNED_TOL, f"binned streaming factors {dfac} from uniform")
+    store, sched, fac = streams["uniform"]
+    for kill in (3, 6):
+        with tempfile.TemporaryDirectory() as ck:
+            try:
+                run_streaming_als(store, sched, cfg, factors=fresh_init(store), ckpt_dir=ck,
+                                  fail_after_waves=kill)
+                fail(f"the kill after wave {kill} did not fire")
+            except SimulatedFailure:
+                pass
+            rfac, _, rtel = run_streaming_als(store, sched, cfg, ckpt_dir=ck)
+        same = (torch.equal(torch.from_numpy(rfac.x), torch.from_numpy(fac.x))
+                and torch.equal(torch.from_numpy(rfac.theta), torch.from_numpy(fac.theta)))
+        log(f"netflix-mini kill after wave {kill}, resume from step "
+            f"{rtel.resumed_from_step}: factors bit-equal to the uninterrupted run: {same}")
+        check(same and rtel.resumed_from_step == kill,
+              f"resume after a kill at wave {kill} is not bit-equal")
+
+    # -- 10b. streaming ALS at quarter-Netflix, f=100, capped device ----------------
+    spec = synth.SynthSpec("netflix/4", m=120_047, n=17_770, nnz=24_750_000,
+                           f=100, lam=0.05)
+    cap = int(1.5 * 2**30)
+    depth = 2
+    r_full = rb.to_padded()
+    rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    vm0 = rss_now()
+    q = 8
+    while True:
+        t0 = time.perf_counter()
+        store = RatingStore(r_full, q=q, n_bins=8)
+        build_s = time.perf_counter() - t0
+        plan = plan_store(store, r_full.m, r_full.nnz, spec.f, q, cap, depth)
+        log(f"quarter-Netflix streaming store q={q}: built in {build_s:.2f} s; "
+            f"plan {plan.describe()}")
+        if plan.fits or q >= 1024:
+            break
+        q *= 2
+    check(plan.fits, f"no q up to {q} fits the {cap} B budget")
+    rss1 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    vm1 = rss_now()
+    sched = build_schedule(plan, r_full.m, r_full.n_cols, n_data=1)
+    log(f"  schedule: {sched.describe()}; host peak RSS {rss0 / 2**20:.2f} GiB before the "
+        f"store, {rss1 / 2**20:.2f} GiB after (a high-water mark of the whole process); "
+        f"current RSS {vm0} B before the store, {vm1} B after ({(vm1 - vm0) / 2**30:.3f} GiB "
+        f"added by the store); store host arrays {store.host_nbytes} B "
+        f"(the reference's layout, uniform R^T included), fills {store.fill_breakdown()}")
+    check(len(sched.waves) >= 8, f"only {len(sched.waves)} waves per half")
+    cfg = als.AlsConfig(f=spec.f, lam=spec.lam, iters=3, seed=0)
+    train_eval = triplet(r_full)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    marks = [torch.cuda.Event(enable_timing=True)]
+    walls = [time.perf_counter()]
+
+    def on_wave_iteration(it, rec):
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter())
+
+    reset_counts()
+    marks[0].record()
+    fac, shist, tel = run_streaming_als(store, sched, cfg, prefetch_depth=depth,
+                                        train_eval=train_eval, test_eval=test,
+                                        callback=on_wave_iteration)
+    torch.cuda.synchronize()
+    c10 = read_counts("quarter-Netflix streaming")
+    for k_ in launches:
+        launches[k_] += c10[k_]
+    alloc_peak = torch.cuda.max_memory_allocated() - resident
+    check_ledger(tel, "quarter-Netflix streaming")
+    s_ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(cfg.iters)]
+    for h, ms, w0, w1, h0, ms0 in zip(shist, s_ms, walls, walls[1:], incore_hist,
+                                      incore_iter_ms):
+        log(f"  streaming iteration {h['iteration']}: {ms:.1f} ms on the card "
+            f"({w1 - w0:.3f} s wall; in-core {ms0:.1f} ms) train RMSE "
+            f"{h['train_rmse']:.5f} (in-core {h0['train_rmse']:.5f}) test RMSE "
+            f"{h['test_rmse']:.5f} (in-core {h0['test_rmse']:.5f})")
+    d_rmse = max(max(abs(a["train_rmse"] - b["train_rmse"]), abs(a["test_rmse"] - b["test_rmse"]))
+                 for a, b in zip(shist, incore_hist))
+    check(len(shist) == len(incore_hist) and d_rmse <= STREAM_RMSE_TOL,
+          f"quarter-Netflix streaming RMSE is {d_rmse} from in-core")
+    ps = tel.phase_seconds
+    per_it = tel.bytes_streamed / cfg.iters
+    log(f"  max |dRMSE| vs in-core {d_rmse:.3g}; {tel.waves_run} waves; "
+        f"{tel.bytes_streamed} B streamed ({per_it:.0f} B per iteration: "
+        f"{per_it / (sum(s_ms) / cfg.iters) / 1e6:.2f} GB/s over the iteration on the "
+        f"card's clock, {tel.bytes_streamed / max(ps.get('prefetch_load', 0.0), 1e-9) / 1e9:.2f}"
+        f" GB/s over the worker's load time)")
+    log("  phase seconds: " + ", ".join(f"{k_} {v:.4f}" for k_, v in sorted(ps.items())))
+    log(f"  prefetch stall {ps.get('prefetch', 0.0):.4f} s = "
+        f"{ps.get('prefetch', 0.0) / ps['driver'] * 100:.1f} % of the run "
+        f"({ps['driver']:.4f} s); overlapped load {ps.get('prefetch_load', 0.0):.4f} s")
+    log(f"  device memory: allocator peak over the resident {resident} B: {alloc_peak} B "
+        f"({alloc_peak / 2**30:.3f} GiB); schedule capacity {sched.capacity_bytes} B "
+        f"({sched.capacity_bytes / 2**30:.3f} GiB); modelled meter peak {tel.peak_bytes} B "
+        f"({tel.peak_bytes / 2**30:.3f} GiB); allocator/capacity "
+        f"{alloc_peak / sched.capacity_bytes:.3f}")
+    log(render_ledger(tel.ledger))
+    check(bool(np.isfinite(fac.x).all() and np.isfinite(fac.theta).all()),
+          "non-finite streaming factors")
+
+    # the path's two kernels against their plain versions at the shapes this
+    # run gave them, from its store, schedule and final factors (launched
+    # after the counts were read): every bin of solve-X wave 0, every bin of
+    # every batch of the accumulate-Theta half (x_dev of one batch's rows,
+    # in-batch K, the heavy items split), and the accumulated systems' solve
+    serr = {"herm": 0.0, "solve": 0.0}
+
+    def herm_vs_plain(fixed, idx, val, cnt, diag, what):
+        A, B = fused_herm_cuda(fixed, idx, val, cnt, diag)
+        step = max(1, PLAIN_CHUNK_ELEMS // (idx.shape[1] * fixed.shape[1]))
+        for lo in range(0, idx.shape[0], step):
+            sl = slice(lo, lo + step)
+            A0, B0 = fused_herm_plain(fixed, idx[sl], val[sl], cnt[sl], diag[sl])
+            check(torch.allclose(A[sl], A0, atol=HERM_ATOL, rtol=HERM_RTOL)
+                  and torch.allclose(B[sl], B0, atol=HERM_ATOL, rtol=HERM_RTOL),
+                  f"fused_herm disagrees with its plain version on {what}")
+            serr["herm"] = max(serr["herm"], (A[sl] - A0).abs().max().item(),
+                               (B[sl] - B0).abs().max().item())
+            del A0, B0
+        return A, B
+
+    def solve_vs_plain(A, B, what):
+        x1, x0 = batch_solve_cuda(A, B), batch_solve_plain(A, B)
+        check(torch.allclose(x1, x0, atol=SOLVE_TOL, rtol=SOLVE_TOL),
+              f"batch_solve disagrees with its plain version on {what}")
+        serr["solve"] = max(serr["solve"], (x1 - x0).abs().max().item())
+        return x1
+
+    w0 = sched.waves[0]
+    theta_dev = torch.from_numpy(fac.theta).to(dev)
+    x_shapes = []
+    for (idx, val, cnt), _rows in als._device_bins(
+            store.x_slice_binned(w0.row_start, w0.row_stop), dev):
+        diag = spec.lam * cnt.to(torch.float32)
+        diag = torch.where(cnt > 0, diag, torch.ones_like(diag))
+        A, B = herm_vs_plain(theta_dev, idx, val, cnt, diag,
+                             f"solve-X wave 0's bin K={idx.shape[1]}")
+        solve_vs_plain(A, B, f"solve-X wave 0's bin K={idx.shape[1]}")
+        x_shapes.append(tuple(idx.shape))
+        del A, B
+    f = spec.f
+    A = torch.zeros((store.n, f, f), dtype=torch.float32, device=dev)
+    B = torch.zeros((store.n, f), dtype=torch.float32, device=dev)
+    c = torch.zeros((store.n,), dtype=torch.float32, device=dev)
+    t_calls, t_split, t_kmax = 0, 0, 0
+    for wave in sched.waves:
+        for b in wave.batches:
+            x_dev = torch.from_numpy(fac.x[b.row_start:b.row_stop]).to(dev)
+            for (idx, val, cnt), rows in als._device_bins(store.theta_batch_binned(b.index), dev):
+                Ab, Bb = herm_vs_plain(x_dev, idx, val, cnt, spec.lam * cnt.to(torch.float32),
+                                       f"batch {b.index}'s R^T bin K={idx.shape[1]}")
+                A.index_add_(0, rows, Ab)
+                B.index_add_(0, rows, Bb)
+                c.index_add_(0, rows, cnt.to(torch.float32))
+                t_calls += 1
+                t_split += idx.shape[1] > S
+                t_kmax = max(t_kmax, idx.shape[1])
+                del Ab, Bb
+    A.diagonal(dim1=-2, dim2=-1).add_((c <= 0).to(A.dtype)[:, None])
+    theta1 = solve_vs_plain(A, B, f"the accumulated Theta systems (n={store.n})")
+    dtheta = (theta1 - theta_dev).abs().max().item()
+    log(f"  streaming shapes, kernel vs plain: solve-X wave 0 bins {x_shapes} (x_dev "
+        f"{w0.rows} rows); accumulate-Theta {t_calls} bin calls over {len(sched.waves)} "
+        f"batches of {sched.waves[0].batches[0].row_stop - sched.waves[0].batches[0].row_start}"
+        f" rows, {t_split} split (K > {S}, largest K {t_kmax}); accumulated solve "
+        f"n={store.n}: max|dA,dB| {serr['herm']:.3g}, max|dx| {serr['solve']:.3g}; "
+        f"the re-accumulated Theta vs the run's: max|d| {dtheta:.3g} "
+        f"(bit-equal: {torch.equal(theta1, theta_dev)})")
+    check(t_split > 0, "no accumulate-Theta bin took fused_herm's split path")
+    check(torch.allclose(theta1, theta_dev, atol=SOLVE_TOL, rtol=SOLVE_TOL),
+          f"the re-accumulated Theta is {dtheta} from the streaming run's")
+    for k in kernels:
+        e = {"fused_herm": serr["herm"], "batch_solve": serr["solve"]}.get(k["name"])
+        if e is not None:
+            k["max_abs_err_streaming"] = e
+            k["max_abs_err"] = max(k["max_abs_err"], e)
+    del A, B, c, theta1, theta_dev, x_dev, idx, val, cnt, rows
+    # one more iteration (warm, no evaluation) under torch.profiler: how
+    # much of its wall time the card spends in kernels and in copies
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def busy_ms(spans) -> float:
+        total, end = 0.0, float("-inf")
+        for lo, hi in sorted(spans):
+            if hi > end:
+                total += hi - max(lo, end)
+                end = hi
+        return total / 1e3
+
+    cfg1 = als.AlsConfig(f=spec.f, lam=spec.lam, iters=1, seed=0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        w0 = time.perf_counter()
+        run_streaming_als(store, sched, cfg1, prefetch_depth=depth,
+                          factors=FactorStore.from_arrays(fac.x, fac.theta))
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - w0) * 1e3
+    kern, copies = [], []
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            (copies if "memcpy" in e.name.lower() else kern).append(
+                (e.time_range.start, e.time_range.end))
+    kb, cb = busy_ms(kern), busy_ms(copies)
+    if kern:
+        log(f"  profiled streaming iteration (warm, no evaluation, profiler on): "
+            f"{prof_ms:.1f} ms wall; {len(kern)} kernels busy {kb:.1f} ms "
+            f"({kb / prof_ms * 100:.1f} %), {len(copies)} copies busy {cb:.1f} ms; "
+            f"kernels idle {100 - kb / prof_ms * 100:.1f} % of the wall time")
+    else:
+        log(f"  profiled streaming iteration: {prof_ms:.1f} ms wall; device idle share "
+            f"not measured (the profiler returned no device events)")
+    del train_eval, r_full, store
+    for k in kernels:
+        if k["name"] in launches:
+            k["launches_streaming"] = launches[k["name"]]
 
     log(smi.splitlines()[0])
     log(json.dumps({"kernels": kernels}))

@@ -7,13 +7,21 @@ each counterpart is easy to find:
 - ``backend``          device and kernel-mode selection;
 - ``sparse``           padded-ELL layouts and synthetic ratings (numpy);
 - ``kernels``          plain torch versions, the hand-written CUDA kernels
-                       (``csrc/``), their ctypes wrappers and ``ops``;
-- ``core``             the objective and the in-core MO-ALS driver;
+                       (``csrc/``), their ctypes wrappers, ``ops`` and the
+                       kernels' shared-memory budgets;
+- ``core``             the objective, the in-core MO-ALS driver and the
+                       eq. (8) partition planner;
 - ``sgd``              CuMF_SGD blocking, the batch-Hogwild epoch driver
                        and the ALS->SGD hybrid;
 - ``training``         the learning-rate schedule;
 - ``checkpoint``       the checkpoint store and manager (the reference's
-                       on-disk layout).
+                       on-disk layout);
+- ``obs``              span tracing, metrics, Chrome-trace export and the
+                       plan-vs-actual ledger (the reference's schema);
+- ``data``             the host->device prefetcher (pinned staging, a
+                       side CUDA stream);
+- ``outofcore``        single-device out-of-core streaming ALS: rating
+                       store, wave schedule, runtime and wave driver.
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 without a GPU they raise instead of falling back.

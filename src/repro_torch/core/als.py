@@ -108,11 +108,17 @@ def partial_herm(x_batch, idx_loc, val_loc, cnt_loc, cfg: AlsConfig):
 def solve_accumulated(A, B, cnt_total, cfg: AlsConfig) -> torch.Tensor:
     """Solve a factor from accumulated partial Hermitians: a row empty in
     every batch gets A = I (x = 0, like ``diag_fallback``), then the
-    batched Cholesky solve, in row blocks of ``cfg.batch_rows`` when set."""
-    f = A.shape[-1]
+    batched Cholesky solve, in row blocks of ``cfg.batch_rows`` when set.
+    ``A`` is left as it was (the guard goes into one copy)."""
+    return solve_accumulated_(A.clone(), B, cnt_total, cfg)
+
+
+def solve_accumulated_(A, B, cnt_total, cfg: AlsConfig) -> torch.Tensor:
+    """:func:`solve_accumulated` that adds the empty rows' identity into
+    ``A`` itself: for a caller whose accumulator is spent (the streaming
+    driver's last wave), no ``[n, f, f]`` temporary."""
     empty = (cnt_total <= 0).to(A.dtype)
-    A = A + empty[:, None, None] * torch.eye(f, dtype=A.dtype,
-                                             device=A.device)[None, :, :]
+    A.diagonal(dim1=-2, dim2=-1).add_(empty[:, None])
 
     def solve(ab):
         return kops.batch_solve(ab[0], ab[1], mode=cfg.mode)

@@ -1,0 +1,343 @@
+"""Host-resident stores for out-of-core ALS (paper §4.4 "keep R and R^T"),
+the port's copy of the reference's ``repro/outofcore/store.py``.
+
+The rating matrix lives in host memory in *both* orientations, pre-cut into
+the shapes the wave driver streams:
+
+- ``RatingStore.r`` — R row-major (rows = users), sliced per wave with
+  ``sparse.padded.row_slice`` for the solve-X half (views, not the
+  reference's copies: the prefetcher stages them).
+- the R^T column shards of the plan's q user-batches (batch-local user
+  coordinates), for the accumulate-Theta half: ``rt_parts`` stacks them
+  uniform-K exactly as the reference's ``partition_padded`` of the padded
+  R^T does; ``rt_binned`` holds one degree-binned ``BinnedELL`` per batch.
+
+Building them differs from the reference, not what they hold.  The
+reference pads the whole R^T at the top item's degree and then partitions
+it; at quarter-Netflix (top item 107,906 ratings) each of those two arrays
+is ~14 GiB on the host, although a binned p = 1 run never streams them.
+The port builds each batch's R^T straight from that batch's rows of R
+(``_rt_csr``), keeps only the per-batch counts (``rt_cnt``) and the
+uniform width (``rt_k``), bins each batch from its CSR, and builds the
+uniform stack ``rt_parts`` only when first read.  Every array and every
+fill, pricing and size property equals the reference's.
+
+Factors live in ``FactorStore`` as plain numpy arrays; the driver reads
+slices onto the device and writes solved slices back, so device memory
+only ever holds the resident factor plus the streaming wave buffers.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+
+from repro_torch.sparse.padded import (BinnedELL, PaddedELL, bin_padded,
+                                       bin_rows, csr_from_coo, pad_csr_fast,
+                                       pad_rows, row_slice)
+
+Triplet = Tuple[np.ndarray, np.ndarray, np.ndarray]
+
+
+def _triplet(ell: PaddedELL) -> Triplet:
+    # copy=False: the arrays are already int32/float32; a wave's slices
+    # stay views of the store until the prefetcher stages them
+    return (ell.idx.astype(np.int32, copy=False),
+            ell.val.astype(np.float32, copy=False),
+            ell.cnt.astype(np.int32, copy=False))
+
+
+def triplet_nbytes(t: Triplet) -> int:
+    return sum(int(a.nbytes) for a in t)
+
+
+def binned_nbytes(binned: BinnedELL) -> int:
+    """Streamed bytes of a BinnedELL's per-bin triplets (idx + val + cnt)."""
+    return sum(int(b.idx.nbytes + b.val.nbytes + b.cnt.nbytes)
+               for b in binned.bins)
+
+
+def _host(a) -> np.ndarray:
+    """numpy view of an array or a tensor (on any device)."""
+    if hasattr(a, "detach"):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+@dataclasses.dataclass
+class FactorStore:
+    """Host-resident X [m_pad, f] and Theta [n, f] with slice IO."""
+
+    x: np.ndarray
+    theta: np.ndarray
+
+    @classmethod
+    def from_arrays(cls, x, theta) -> "FactorStore":
+        """Owned float32 copies of numpy arrays or tensors: the driver
+        writes solved slices back in place."""
+        return cls(x=np.array(_host(x), np.float32, order="C"),
+                   theta=np.array(_host(theta), np.float32, order="C"))
+
+    def factor(self, side: str) -> np.ndarray:
+        if side not in ("x", "theta"):
+            raise ValueError(f"side must be 'x' or 'theta', got {side!r}")
+        return self.x if side == "x" else self.theta
+
+    def read_slice(self, side: str, start: int, stop: int) -> np.ndarray:
+        return np.ascontiguousarray(self.factor(side)[start:stop])
+
+    def write_slice(self, side: str, start: int, stop: int, rows) -> None:
+        arr = self.factor(side)
+        rows = _host(rows)
+        if stop - start != len(rows):
+            raise ValueError(f"slice [{start}, {stop}) got {len(rows)} rows")
+        arr[start:stop] = rows.astype(arr.dtype, copy=False)
+
+    @property
+    def nbytes(self) -> int:
+        return int(self.x.nbytes + self.theta.nbytes)
+
+
+class RatingStore:
+    """R in both orientations, pre-cut for a q-batch wave schedule (p = 1).
+
+    ``q`` is the plan's number of X-row batches.  Rows are padded with empty
+    rows to ``m_pad`` (the next multiple of q) so every batch has identical
+    shape; padded rows carry cnt = 0 and solve to x_u = 0 without touching
+    Theta.
+
+    ``n_bins > 1`` additionally keeps degree-binned shards of both
+    orientations (``r_binned``, one ``BinnedELL`` per R^T user-batch in
+    ``rt_binned``); the driver then streams each wave bin-wise through
+    ``x_slice_binned`` / ``theta_batch_binned``.
+
+    Not ported yet: ``p > 1`` (the mesh path's model-shard layouts, ROADMAP
+    Queue 1 item 9) and ``n_bins="auto"`` (the layout autotuner, item 10).
+    """
+
+    def __init__(self, r: PaddedELL, q: int, k_multiple: int = 8, p: int = 1,
+                 n_bins=1):
+        if n_bins == "auto":
+            raise NotImplementedError(
+                "RatingStore(n_bins='auto') needs the layout autotuner, which "
+                "the port does not have yet (ROADMAP Queue 1 item 10)")
+        if p != 1:
+            raise NotImplementedError(
+                "RatingStore(p > 1) builds the mesh path's model-shard "
+                "layouts, which the port does not have yet (ROADMAP Queue 1 "
+                "item 9)")
+        if q < 1 or n_bins < 1:
+            raise ValueError(f"need q >= 1 and n_bins >= 1, got q={q} n_bins={n_bins}")
+        self.m = r.m                       # true (unpadded) user count
+        self.n = r.n_cols                  # item count
+        self.q = q
+        self.p = p
+        self.n_bins = n_bins
+        self.k_multiple = k_multiple
+        self.m_pad = -(-r.m // q) * q
+        self.r = pad_rows(r, self.m_pad)   # rows = users, global item idx
+        # per-batch R^T counts [q, n] (and, binned, each batch's bins from
+        # its CSR); the uniform stack's K is the largest in-batch item
+        # degree rounded up (partition_padded's K_loc)
+        self.rt_cnt = np.zeros((q, self.n), np.int32)
+        self.r_binned = None
+        self.rt_binned = None
+        rt_binned = []
+        for j in range(q):
+            ptr, users, vals = self._rt_csr(j)
+            self.rt_cnt[j] = np.diff(ptr)
+            if n_bins > 1:
+                rt_binned.append(bin_rows(ptr, users, vals, self.m_pad // q,
+                                          n_bins=n_bins, k_multiple=k_multiple))
+        kmax = int(self.rt_cnt.max()) if self.n else 0
+        self.rt_k = max(k_multiple, -(-kmax // k_multiple) * k_multiple)
+        self._rt_parts: Optional[PaddedELL] = None
+        if n_bins > 1:
+            self.r_binned = bin_padded(self.r, n_bins, k_multiple=k_multiple)
+            self.rt_binned = tuple(rt_binned)
+
+    def _rt_csr(self, j: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """CSR (ptr, users, vals) of R^T restricted to user-batch ``j``,
+        users batch-local and ascending within each item row — the order
+        in which the reference's ``partition_padded`` of the padded R^T
+        lays out shard ``j``."""
+        mq = self.m_pad // self.q
+        lo = j * mq
+        view = PaddedELL(idx=self.r.idx[lo:lo + mq], val=self.r.val[lo:lo + mq],
+                         cnt=self.r.cnt[lo:lo + mq], n_cols=self.n)
+        items, users, vals = view.transpose_coo()
+        return csr_from_coo(items, users, vals, self.n)
+
+    @property
+    def rt_shape(self) -> Tuple[int, int, int]:
+        """Shape ``(q, n, K_loc)`` of the uniform R^T stack ``rt_parts``."""
+        return (self.q, self.n, self.rt_k)
+
+    @property
+    def rt_parts(self) -> PaddedELL:
+        """R^T column-partitioned into the q user-batches, uniform K:
+        idx/val ``[q, n, K_loc]``, cnt ``[q, n]`` — equal to the
+        reference's ``partition_padded`` of the padded R^T.  Built on first
+        read (the uniform store's theta half reads it)."""
+        if self._rt_parts is None:
+            q, n, K = self.rt_shape
+            idx = np.zeros((q, n, K), np.int32)
+            val = np.zeros((q, n, K), np.float32)
+            for j in range(q):
+                shard = pad_csr_fast(*self._rt_csr(j), n_cols=self.m_pad // q,
+                                     k_multiple=self.k_multiple)
+                idx[j, :, :shard.K] = shard.idx
+                val[j, :, :shard.K] = shard.val
+            self._rt_parts = PaddedELL(idx=idx, val=val, cnt=self.rt_cnt,
+                                       n_cols=self.m_pad // q)
+        return self._rt_parts
+
+    @property
+    def nnz(self) -> int:
+        return self.r.nnz
+
+    @property
+    def fill_r(self) -> float:
+        """Padding overhead of the row-major orientation (solve-X waves):
+        per-bin padded slots over nnz when binned, uniform-K fill otherwise.
+        """
+        if self.r_binned is not None:
+            return self.r_binned.fill
+        return self.r.fill
+
+    @property
+    def fill_rt(self) -> float:
+        """Padding overhead of the q-partitioned R^T shards: every item row
+        pads to the largest in-batch item degree unless binned."""
+        if self.rt_binned is not None:
+            slots = sum(b.padded_slots for b in self.rt_binned)
+            return float(slots) / max(self.nnz, 1)
+        q, n, K_loc = self.rt_shape
+        return float(q * n * K_loc) / max(self.nnz, 1)
+
+    @property
+    def worst_fill(self) -> float:
+        return max(self.fill_r, self.fill_rt)
+
+    def fill_breakdown(self) -> dict:
+        """Per-component padding fills, keyed like the ledger records them
+        (``worst_fill`` is their max)."""
+        return {"r": self.fill_r, "rt": self.fill_rt}
+
+    def bin_fill_pairs(self) -> list:
+        """Per-bin ``(padded_slots, nnz)`` of the worst-fill orientation —
+        the ``plan_for(bin_fills=...)`` pricing input; their aggregate
+        equals ``worst_fill``.  Requires a binned store."""
+        if self.r_binned is None:
+            raise ValueError("RatingStore was built with n_bins=1; pass n_bins "
+                             "to price bins")
+        if self.fill_r >= self.fill_rt:
+            src = self.r_binned.bins
+        else:
+            src = [bb for b in self.rt_binned for bb in b.bins]
+        return [(int(b.padded_slots), int(b.nnz)) for b in src]
+
+    @property
+    def host_nbytes(self) -> int:
+        """Bytes of the reference store's host arrays (R, the uniform R^T
+        stack and the binned shards), whether or not the stack is built."""
+        q, n, K_loc = self.rt_shape
+        total = int(self.r.idx.nbytes + self.r.val.nbytes + self.r.cnt.nbytes
+                    + q * n * K_loc * (4 + 4) + self.rt_cnt.nbytes)
+        if self.r_binned is not None:
+            total += binned_nbytes(self.r_binned)
+            total += sum(binned_nbytes(b) for b in self.rt_binned)
+        return total
+
+    def x_slice_triplet(self, row_start: int, row_stop: int) -> Triplet:
+        """R rows for one solve-X wave slice (global item indices): host
+        views of the store's arrays (the reference copies them; here the
+        prefetcher's pinned staging is the one copy)."""
+        return _triplet(row_slice(self.r, row_start, row_stop, copy=False))
+
+    def x_slice_binned(self, row_start: int, row_stop: int) -> BinnedELL:
+        """R rows for one solve-X wave slice, cut bin-wise (slice-local row
+        indices, every bin kept, possibly empty), its bins host views of
+        the store's arrays as in :meth:`x_slice_triplet`.  Requires a
+        binned store."""
+        if self.r_binned is None:
+            raise ValueError("RatingStore was built with n_bins=1; pass n_bins "
+                             "to bin waves")
+        return self.r_binned.row_slice(row_start, row_stop, copy=False)
+
+    def theta_batch_triplet(self, j: int) -> Triplet:
+        """R^T shard of user-batch ``j`` (batch-local user indices): host
+        views into the uniform stack."""
+        if not 0 <= j < self.q:
+            raise IndexError(f"batch {j} outside [0, {self.q})")
+        parts = self.rt_parts
+        return (parts.idx[j], parts.val[j], parts.cnt[j])
+
+    def theta_batch_binned(self, j: int) -> BinnedELL:
+        """Degree-binned R^T shard of user-batch ``j`` (batch-local user
+        indices, item rows grouped by in-batch degree).  Requires a binned
+        store."""
+        if self.rt_binned is None:
+            raise ValueError("RatingStore was built with n_bins=1; pass n_bins "
+                             "to bin shards")
+        if not 0 <= j < self.q:
+            raise IndexError(f"batch {j} outside [0, {self.q})")
+        return self.rt_binned[j]
+
+
+class TileStore:
+    """Host-resident g x g ``BlockGrid`` tiles for a streaming SGD driver:
+    a thin per-tile view layer over the grid's stacked arrays, the SGD
+    counterpart of ``RatingStore``'s wave slicing.  Factor blocks live in a
+    ``FactorStore`` whose X is ``[g*mb, f]`` and Theta is ``[g*nb, f]``."""
+
+    def __init__(self, grid):
+        self.grid = grid
+
+    @property
+    def g(self) -> int:
+        return self.grid.g
+
+    @property
+    def mb(self) -> int:
+        return self.grid.mb
+
+    @property
+    def nb(self) -> int:
+        return self.grid.nb
+
+    @property
+    def K(self) -> int:
+        return self.grid.K
+
+    @property
+    def m(self) -> int:
+        return self.grid.m
+
+    @property
+    def n(self) -> int:
+        return self.grid.n
+
+    @property
+    def nnz(self) -> int:
+        return self.grid.nnz
+
+    @property
+    def host_nbytes(self) -> int:
+        return int(self.grid.idx.nbytes + self.grid.val.nbytes
+                   + self.grid.cnt.nbytes)
+
+    def tile_k(self, i: int, j: int) -> int:
+        return self.grid.tile_k(i, j)
+
+    def tile_triplet(self, i: int, j: int) -> Triplet:
+        """Tile (i, j)'s (idx, val, cnt) as host views (no copy); on a
+        per-tile-K grid the slot axis is cut to the tile's own K (the
+        trailing columns are all padding)."""
+        if not (0 <= i < self.g and 0 <= j < self.g):
+            raise IndexError(f"tile ({i}, {j}) outside the {self.g}x{self.g} grid")
+        k = self.grid.tile_k(i, j)
+        return (self.grid.idx[i, j, :, :k].astype(np.int32, copy=False),
+                self.grid.val[i, j, :, :k].astype(np.float32, copy=False),
+                self.grid.cnt[i, j].astype(np.int32, copy=False))

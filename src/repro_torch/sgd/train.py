@@ -33,6 +33,7 @@ from repro_torch.backend import DeviceLike, Mode, default_mode, resolve_device
 from repro_torch.core.objective import rmse_padded
 from repro_torch.kernels.sgd_update import (P_SPLIT, SlotPlan, build_plan,
                                             sgd_block_update, sgd_tile_planned_)
+from repro_torch.obs.trace import current_tracer, phase
 from repro_torch.sgd.blocking import BlockGrid
 from repro_torch.training.optimizer import lr_schedule
 
@@ -229,6 +230,8 @@ def sgd_train(
     init_state: Optional[SgdState] = None,
     ckpt_dir: Optional[str] = None,
     callback=None,
+    tracer=None,
+    registry=None,
 ) -> tuple[SgdState, list[dict]]:
     """Epoch loop with lr schedule, RMSE tracking, and checkpoint/resume.
 
@@ -237,7 +240,18 @@ def sgd_train(
     the padded factors back to the true (m, n).  With ``ckpt_dir`` the
     driver restores the latest epoch on entry and saves after every epoch
     (async, paper §4.4 protocol), so a killed run resumes bit-exact.
+
+    Each epoch runs in an ``epoch`` obs phase (plus a ``checkpoint`` phase
+    per commit) feeding ``registry`` when given; ``tracer`` defaults to
+    the process-wide tracer and its spans are no-ops unless one is
+    enabled.  On the card, when a registry is given or the tracer is
+    enabled, the epoch phase ends with a stream synchronise (the
+    reference's ``block_until_ready``), so it times the epoch's kernels
+    and not only their launch; with neither, the epochs queue on the
+    card unsynchronised.
     """
+    tracer = tracer if tracer is not None else current_tracer()
+    timed = registry is not None or tracer.enabled
     state = sgd_init(grid, cfg) if init_state is None else init_state
     start = int(state.epoch)
     mgr = None
@@ -254,8 +268,12 @@ def sgd_train(
     history: list[dict] = []
     for ep in range(start, cfg.epochs):
         lr = epoch_lr(cfg, ep)
-        state = sgd_epoch(state, gt, grid, cfg, lr,
-                          set_order=epoch_set_order(cfg.seed, ep, grid.g), plan=plan)
+        with phase("sgd.epoch", cat="epoch", tracer=tracer,
+                   registry=registry, epoch=ep + 1, lr=lr):
+            state = sgd_epoch(state, gt, grid, cfg, lr,
+                              set_order=epoch_set_order(cfg.seed, ep, grid.g), plan=plan)
+            if timed and state.x.is_cuda:
+                torch.cuda.current_stream(state.x.device).synchronize()
         rec = {"epoch": ep + 1, "lr": lr}
         x, th = eval_factors(state, grid)
         if test is not None:
@@ -267,8 +285,10 @@ def sgd_train(
             # host copies, not the live factors: the manager commits on a
             # background thread, and on the CPU ``t.cpu().numpy()`` would
             # alias the tensor itself
-            mgr.save(ep + 1, {"x": np.array(state.x.cpu()),
-                              "theta": np.array(state.theta.cpu())})
+            with phase("checkpoint.commit", cat="checkpoint",
+                       tracer=tracer, registry=registry, step=ep + 1):
+                mgr.save(ep + 1, {"x": np.array(state.x.cpu()),
+                                  "theta": np.array(state.theta.cpu())})
         if callback is not None:
             callback(state, rec)
     if mgr is not None:

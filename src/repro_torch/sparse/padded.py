@@ -131,18 +131,18 @@ def pad_csr_fast(ptr: np.ndarray, cols: np.ndarray, vals: np.ndarray,
     return PaddedELL(idx=idx, val=val, cnt=cnt, n_cols=n_cols)
 
 
-def row_slice(ell: PaddedELL, start: int, stop: int) -> PaddedELL:
+def row_slice(ell: PaddedELL, start: int, stop: int,
+              copy: bool = True) -> PaddedELL:
     """Host-side contiguous row slice ``ell[start:stop]`` with K and
     ``n_cols`` preserved.  The slice owns its memory (``.copy()``), so it
-    never aliases the parent."""
+    never aliases the parent; ``copy=False`` returns views of the parent
+    (contiguous: a row slice of a C-order array), for a caller whose
+    transfer is the copy."""
     if not 0 <= start <= stop <= ell.m:
         raise ValueError(f"row slice [{start}, {stop}) outside [0, {ell.m})")
-    return PaddedELL(
-        idx=ell.idx[start:stop].copy(),
-        val=ell.val[start:stop].copy(),
-        cnt=ell.cnt[start:stop].copy(),
-        n_cols=ell.n_cols,
-    )
+    take = (lambda a: a[start:stop].copy()) if copy else (lambda a: a[start:stop])
+    return PaddedELL(idx=take(ell.idx), val=take(ell.val), cnt=take(ell.cnt),
+                     n_cols=ell.n_cols)
 
 
 def pad_rows(ell: PaddedELL, m_to: int) -> PaddedELL:
@@ -158,6 +158,51 @@ def pad_rows(ell: PaddedELL, m_to: int) -> PaddedELL:
         idx=np.pad(ell.idx, ((0, extra), (0, 0))),
         val=np.pad(ell.val, ((0, extra), (0, 0))),
         cnt=np.pad(ell.cnt, (0, extra)),
+        n_cols=ell.n_cols,
+    )
+
+
+def partition_padded(ell: PaddedELL, p: int, k_multiple: int = 8) -> PaddedELL:
+    """Column-partition a PaddedELL into ``p`` shards (paper eq. 5-7).
+
+    Returns a PaddedELL whose arrays carry a leading shard axis:
+        idx [p, m, K_loc], val [p, m, K_loc], cnt [p, m]
+    Shard i holds the nonzeros with column in [i*n/p, (i+1)*n/p), in the
+    order the row holds them, with the column re-based to the shard.
+    """
+    if ell.n_cols % p:
+        raise ValueError(f"n={ell.n_cols} not divisible by p={p}")
+    npp = ell.n_cols // p
+    m = ell.m
+    live = ell.mask().astype(bool)
+    shard_of = ell.idx // npp          # [m, K] which shard owns each nonzero
+    local_col = ell.idx % npp
+    cnt_p = np.zeros((p, m), dtype=np.int32)
+    for i in range(p):
+        cnt_p[i] = ((shard_of == i) & live).sum(axis=1)
+    kmax = int(cnt_p.max()) if m else 0
+    K_loc = max(k_multiple, -(-kmax // k_multiple) * k_multiple)
+    idx_p = np.zeros((p, m, K_loc), dtype=np.int32)
+    val_p = np.zeros((p, m, K_loc), dtype=np.float32)
+    for i in range(p):
+        sel = (shard_of == i) & live                       # [m, K]
+        pos = np.cumsum(sel, axis=1) - 1                   # slot within shard row
+        uu, kk = np.nonzero(sel)
+        idx_p[i, uu, pos[uu, kk]] = local_col[uu, kk]
+        val_p[i, uu, pos[uu, kk]] = ell.val[uu, kk]
+    return PaddedELL(idx=idx_p, val=val_p, cnt=cnt_p, n_cols=npp)
+
+
+def row_partition(ell: PaddedELL, q: int) -> PaddedELL:
+    """Row-partition into ``q`` shards: arrays get a leading q axis (views,
+    no copy); rows must divide evenly (pad rows upstream)."""
+    if ell.m % q:
+        raise ValueError(f"m={ell.m} not divisible by q={q}")
+    mq = ell.m // q
+    return PaddedELL(
+        idx=ell.idx.reshape(q, mq, ell.K),
+        val=ell.val.reshape(q, mq, ell.K),
+        cnt=ell.cnt.reshape(q, mq),
         n_cols=ell.n_cols,
     )
 
@@ -242,12 +287,14 @@ class BinnedELL:
         return [(int(np.searchsorted(r, start)), int(np.searchsorted(r, stop)))
                 for r in self.rows]
 
-    def row_slice(self, start: int, stop: int) -> "BinnedELL":
+    def row_slice(self, start: int, stop: int,
+                  copy: bool = True) -> "BinnedELL":
         """Bin-wise cut of original rows ``[start, stop)``, rebased to the
-        slice (empty bins are kept)."""
+        slice (empty bins are kept); ``copy=False`` as in :func:`row_slice`
+        (the rebased row maps are new arrays either way)."""
         spans = self.bin_spans(start, stop)
         return BinnedELL(
-            bins=tuple(row_slice(b, lo, hi)
+            bins=tuple(row_slice(b, lo, hi, copy=copy)
                        for b, (lo, hi) in zip(self.bins, spans)),
             rows=tuple((r[lo:hi] - start).astype(np.int64)
                        for r, (lo, hi) in zip(self.rows, spans)),
