@@ -49,7 +49,15 @@ Phases, in order; any failure stops the run with a non-zero exit:
    within 1e-4 of in-core ``als_train`` (tests/test_outofcore.py:181),
    binned factors within 1e-5 of uniform (:474), both ledgers all ok; a
    kill after wave 3 (solve-X) and after wave 6 (accumulate-Theta) and a
-   resume from the checkpoints, bit-equal to the uninterrupted run;
+   resume from the checkpoints, bit-equal to the uninterrupted run; then
+   streaming SGD (``outofcore.run_streaming_sgd``, g=4, 2 tiles a wave, 2
+   epochs) on the uniform and the per-tile-K grid, factors within 1e-5 and
+   test RMSE within 1e-3 per epoch of in-core ``sgd_train``
+   (tests/test_outofcore.py:290-292), per-tile-K bit-equal to uniform,
+   kills after waves 3 and 11 resumed bit-equal; and the streaming hybrid
+   (``sgd.run_streaming_hybrid``, 2 ALS iterations + 2 SGD epochs, both
+   streamed), its first SGD epoch below the cold ALS start, a restart that
+   skips ALS and gives bit-equal factors; every ledger all ok;
 10b. streaming ALS at quarter-Netflix, f=100, on phase 6's ratings: the
    binned store (n_bins=8), q the smallest power of two >= 8 whose eq. (8)
    plan fits a device capped at 1.5 GiB (standing in for a problem larger
@@ -62,7 +70,23 @@ Phases, in order; any failure stops the run with a non-zero exit:
    added, ms per iteration (CUDA events and wall clock),
    the phase breakdown (prefetch stall against overlapped load), bytes
    streamed and the rate they imply, and the allocator's peak beside the
-   schedule's capacity and the modelled meter's peak.
+   schedule's capacity and the modelled meter's peak, which it must not
+   exceed;
+10c. streaming SGD at quarter-Netflix, f=100, on phase 8's grid and
+   config from a cold start: one tile a wave (16 waves an epoch), 3 epochs
+   without evaluation, the final factors within 1e-5 of phase 8's, an
+   all-ok ledger with exact bytes, ms per epoch, the stall share, bytes
+   and their rate, each wave's slot plan (build time, bytes, and the
+   allocator's peak of building the largest alone), the allocator's peak
+   over the run, which must not exceed the schedule's capacity plus that
+   plan peak; ``sgd_tile_planned_`` at one wave of each set against
+   ``sgd_tile_planned_plain`` and ``sgd_tile_plain``;
+10d. the layout autotuner on phase 10b's ratings (q=8, f=100): the
+   analytic ALS sweep, whose winner's bytes must equal its store's
+   ``predicted_stream_stats``; the measured sweep (one solve-X wave per
+   rung on the card); the SGD blocking sweep at g=4; and
+   ``RatingStore(n_bins="auto")`` twice through a cache file, a miss and
+   then a hit under the ``cuda`` backend tag.
 
 The second-to-last line of output is a JSON ``kernels`` record; the last
 line is ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
@@ -159,8 +183,11 @@ def main() -> int:
     from repro_torch.kernels.sgd_update import sgd_tile_cuda, sgd_tile_plain
     from repro_torch.obs.ledger import validate_ledger
     from repro_torch.obs.report import render_ledger
+    from repro_torch.core import autotune
     from repro_torch.outofcore import (FactorStore, RatingStore, SimulatedFailure,
-                                       build_schedule, run_streaming_als)
+                                       TileStore, build_schedule, build_sgd_schedule,
+                                       run_streaming_als, run_streaming_sgd, sgd_driver)
+    from repro_torch.outofcore.schedule import predicted_stream_stats
     from repro_torch.sgd import blocking, hybrid
     from repro_torch.sgd import train as sgd
     from repro_torch.sparse import synth
@@ -729,6 +756,8 @@ def main() -> int:
          "ms": sgd_ms, "plain_ms": sgd_plain_ms, "bound_ms": gb,
          "bound_by": gb_by, "library_ms": None})
     del sets, plans, gt, idx, val, cnt, train_eval, r_full, xc, tc
+    p8 = {"grid": grid, "state": sstate, "hist": shist, "cfg": scfg,
+          "epoch_ms": epoch_ms, "eval_ms": eval_ms, "sgd_ms": sgd_ms}
 
     # -- 9. Fig. 7: device-memory vs register accumulator, largest user bin ----------
     b = max(rb.bins, key=lambda e: e.m)
@@ -853,6 +882,99 @@ def main() -> int:
         check(same and rtel.resumed_from_step == kill,
               f"resume after a kill at wave {kill} is not bit-equal")
 
+    # streaming SGD on netflix-mini (g=4, two tiles a wave), kernel mode
+    def check_resumed_ledger(tel, what: str) -> None:
+        # worst_fill_bound holds the grid's fill against the fill of the
+        # waves this run streamed; after a resume mid-epoch that part of an
+        # epoch can pad more than the whole grid (the reference's record)
+        validate_ledger(tel.ledger)             # raises on a malformed ledger
+        bad = [r_["name"] for r_ in tel.ledger["records"]
+               if not r_["ok"] and r_["name"] != "worst_fill_bound"]
+        wf = next(r_ for r_ in tel.ledger["records"] if r_["name"] == "worst_fill_bound")
+        log(f"  {what}: worst_fill_bound predicted {wf['predicted']:.4f} measured "
+            f"{wf['measured']:.4f} ok {wf['ok']}")
+        check(not bad, f"{what}: ledger records fail: {bad}")
+
+    def same_factors(a, b) -> bool:
+        return (torch.equal(torch.from_numpy(a.x), torch.from_numpy(b.x))
+                and torch.equal(torch.from_numpy(a.theta), torch.from_numpy(b.theta)))
+
+    launches["sgd_tile"] = 0
+    mini_test = triplet(rte)
+    mcfg = sgd.SgdConfig(f=spec.f, lam=spec.lam, lr=0.1, epochs=2, seed=3,
+                         schedule="inverse_time", decay=1.0)
+    check(mcfg.mode == "kernel", f"default SGD mode on the card is {mcfg.mode}")
+    mgrid = blocking.block_ell(r, g=4)
+    minc, minc_hist = sgd.sgd_train(mgrid, mcfg, test=mini_test)
+    sstreams = {}
+    for name, kw in (("uniform", {}), ("per-tile-K", dict(per_tile_k=True))):
+        g_ = blocking.block_ell(r, g=4, **kw)
+        tiles_, ssched_ = TileStore(g_), build_sgd_schedule(g_, spec.f, n_workers=2)
+        reset_counts()
+        sfac, sh, stel = run_streaming_sgd(tiles_, ssched_, mcfg, test_eval=mini_test)
+        torch.cuda.synchronize()
+        launches["sgd_tile"] += read_counts(f"netflix-mini streaming SGD {name}",
+                                            ("sgd_tile",))["sgd_tile"]
+        check_ledger(stel, f"netflix-mini streaming SGD {name}")
+        dx = max(np.abs(sfac.x - minc.x.cpu().numpy()).max(),
+                 np.abs(sfac.theta - minc.theta.cpu().numpy()).max())
+        d_rmse = max(abs(a["test_rmse"] - b["test_rmse"]) for a, b in zip(sh, minc_hist))
+        log(f"netflix-mini streaming SGD {name} (g=4, {ssched_.waves_per_epoch} waves an "
+            f"epoch, tile K {sorted(set(g_.tile_K.ravel().tolist())) if g_.tile_K is not None else g_.K}): "
+            f"test RMSE {[round(h['test_rmse'], 5) for h in sh]}; vs in-core sgd_train "
+            f"max |dfactor| {dx:.3g}, max |dRMSE| {d_rmse:.3g}; {stel.waves_run} waves, "
+            f"{stel.bytes_streamed} B streamed, ledger {len(stel.ledger['records'])} records all ok")
+        check(len(sh) == len(minc_hist) and dx <= SGD_TOL and d_rmse <= 1e-3,
+              f"netflix-mini streaming SGD {name} is {dx} / {d_rmse} from in-core")
+        sstreams[name] = (tiles_, ssched_, sfac)
+    same = same_factors(sstreams["per-tile-K"][2], sstreams["uniform"][2])
+    log(f"netflix-mini streaming SGD per-tile-K vs uniform: bit-equal {same}")
+    check(same, "per-tile-K streaming SGD is not bit-equal to uniform")
+    tiles_, ssched_, sfac = sstreams["uniform"]
+    for kill in (3, 11):
+        with tempfile.TemporaryDirectory() as ck:
+            try:
+                run_streaming_sgd(tiles_, ssched_, mcfg, ckpt_dir=ck, fail_after_waves=kill)
+                fail(f"the SGD kill after wave {kill} did not fire")
+            except SimulatedFailure:
+                pass
+            rfac, _, rtel = run_streaming_sgd(tiles_, ssched_, mcfg, ckpt_dir=ck)
+        same = same_factors(rfac, sfac)
+        log(f"netflix-mini streaming SGD kill after wave {kill}, resume from step "
+            f"{rtel.resumed_from_step}: factors bit-equal to the uninterrupted run: {same}")
+        check(same and rtel.resumed_from_step == kill,
+              f"streaming SGD resume after a kill at wave {kill} is not bit-equal")
+        check_resumed_ledger(rtel, f"netflix-mini streaming SGD resumed at wave {kill}")
+    hstore = RatingStore(r, q=4)
+    hsched = build_schedule(plan_store(hstore, r.m, r.nnz, spec.f, 4, 1 << 30), r.m, rt.m,
+                            n_data=1)
+    hcfg = als.AlsConfig(f=spec.f, lam=spec.lam, iters=2)
+    with tempfile.TemporaryDirectory() as ck:
+        reset_counts()
+        hfac, hh, htel = hybrid.run_streaming_hybrid(
+            hstore, hsched, tiles_, ssched_, hcfg, mcfg, test_eval=mini_test, ckpt_dir=ck)
+        torch.cuda.synchronize()
+        c10 = read_counts("netflix-mini streaming hybrid", ("fused_herm", "batch_solve",
+                                                            "sgd_tile"))
+        for k_ in launches:
+            launches[k_] += c10[k_]
+        check_ledger(htel, "netflix-mini streaming hybrid")
+        hfac2, hh2, htel2 = hybrid.run_streaming_hybrid(
+            hstore, hsched, tiles_, ssched_, hcfg, mcfg, test_eval=mini_test, ckpt_dir=ck)
+    tags = [h["phase"] for h in hh]
+    same = same_factors(hfac2, hfac)
+    log(f"netflix-mini streaming hybrid: phases {tags}, test RMSE "
+        f"{[round(h['test_rmse'], 5) for h in hh]}; {htel.waves_run} waves "
+        f"({htel.phases['als'].waves_run} ALS, {htel.phases['sgd'].waves_run} SGD), "
+        f"{htel.bytes_streamed} B streamed; restart: {len(hh2)} records, phases "
+        f"{sorted(htel2.phases)}, factors bit-equal {same}")
+    check(tags == ["als"] * 2 + ["sgd"] * 2, f"streaming hybrid phases {tags}")
+    check(hh[2]["test_rmse"] < hh[0]["test_rmse"],
+          "the streaming hybrid's first SGD epoch is not below the cold ALS start")
+    check(hh2 == [] and "als" not in htel2.phases and same,
+          "the streaming hybrid's restart did not skip ALS with bit-equal factors")
+    del minc, mgrid, sstreams, hstore, hfac, hfac2, mini_test
+
     # -- 10b. streaming ALS at quarter-Netflix, f=100, capped device ----------------
     spec = synth.SynthSpec("netflix/4", m=120_047, n=17_770, nnz=24_750_000,
                            f=100, lam=0.05)
@@ -934,6 +1056,9 @@ def main() -> int:
         f"({sched.capacity_bytes / 2**30:.3f} GiB); modelled meter peak {tel.peak_bytes} B "
         f"({tel.peak_bytes / 2**30:.3f} GiB); allocator/capacity "
         f"{alloc_peak / sched.capacity_bytes:.3f}")
+    check(alloc_peak <= sched.capacity_bytes,
+          f"streaming ALS allocator peak {alloc_peak} B exceeds the schedule's capacity "
+          f"{sched.capacity_bytes} B")
     log(render_ledger(tel.ledger))
     check(bool(np.isfinite(fac.x).all() and np.isfinite(fac.theta).all()),
           "non-finite streaming factors")
@@ -1050,10 +1175,205 @@ def main() -> int:
     else:
         log(f"  profiled streaming iteration: {prof_ms:.1f} ms wall; device idle share "
             f"not measured (the profiler returned no device events)")
-    del train_eval, r_full, store
+    del train_eval
+
+    # -- 10c. streaming SGD at quarter-Netflix, f=100, one tile a wave -------------
+    grid8, scfg8 = p8["grid"], p8["cfg"]
+    g8, mb8, nb8, K8 = grid8.g, grid8.mb, grid8.nb, grid8.K
+    tiles8 = TileStore(grid8)
+    ssched8 = build_sgd_schedule(grid8, f, n_workers=1, prefetch_depth=depth)
+    tile_b = mb8 * K8 * 8 + mb8 * 4                 # one tile's idx, val, cnt
+    blocks_b = (mb8 + nb8) * f * 4                  # its two factor blocks
+    log(f"quarter-Netflix streaming SGD: {ssched8.describe()}; a tile {tile_b} B, its factor "
+        f"blocks {blocks_b} B; capacity ({depth} + 2) x {tile_b} + 2 x {blocks_b} = "
+        f"{ssched8.capacity_bytes} B")
+    check(ssched8.waves_per_epoch == g8 * g8 and
+          ssched8.capacity_bytes == (depth + 2) * tile_b + 2 * blocks_b,
+          f"streaming SGD schedule: {ssched8.describe()}")
+    # each wave's slot plan built alone, as the driver builds it (on the card
+    # from the uploaded tile): time, bytes, and the allocator's peak
+    waves8 = ssched8.epoch_waves(range(g8))
+
+    def upload_tile(i, j):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)[None]).to(dev)
+                     for a in tiles8.tile_triplet(i, j))
+
+    sgd_driver.wave_plan(*upload_tile(*waves8[0].tiles[0]), nb8)       # warm-up
+    plan_ms, plan_b, plan_peak, plan_peak_at = [], [], 0, None
+    for w in waves8:
+        trip = upload_tile(*w.tiles[0])
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pl = sgd_driver.wave_plan(*trip, nb8)
+        torch.cuda.synchronize()
+        plan_ms.append((time.perf_counter() - t0) * 1e3)
+        plan_b.append(pl.nbytes)
+        peak_w = torch.cuda.max_memory_allocated() - base
+        if plan_peak_at is None or peak_w > plan_peak:
+            plan_peak, plan_peak_at = peak_w, (w.tiles[0], int(trip[2].sum()))
+        del trip, pl
+    log(f"  slot plans, one a wave ({len(waves8)} waves, host clock around a synchronise): "
+        f"build {np.mean(plan_ms):.2f} ms mean, {min(plan_ms):.2f}..{max(plan_ms):.2f} ms; "
+        f"{np.mean(plan_b):.0f} B mean, {min(plan_b)}..{max(plan_b)} B; the allocator's "
+        f"peak of building one alone at most {plan_peak} B ({plan_peak / 2**20:.1f} MiB, "
+        f"tile {plan_peak_at[0]}, {plan_peak_at[1]} ratings)")
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    marks = [torch.cuda.Event(enable_timing=True)]
+    walls = [time.perf_counter()]
+
+    def on_sgd_epoch(factors, rec):
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter())
+
+    reset_counts()
+    marks[0].record()
+    sfac8, sh8, stel8 = run_streaming_sgd(tiles8, ssched8, scfg8, prefetch_depth=depth,
+                                          callback=on_sgd_epoch)
+    torch.cuda.synchronize()
+    launches["sgd_tile"] += read_counts("quarter-Netflix streaming SGD",
+                                        ("sgd_tile",))["sgd_tile"]
+    salloc = torch.cuda.max_memory_allocated() - resident
+    check_ledger(stel8, "quarter-Netflix streaming SGD")
+    brec = next(r_ for r_ in stel8.ledger["records"] if r_["name"] == "bytes_streamed")
+    per_ep = len(waves8) * (tile_b + blocks_b)
+    check(brec["check"] == "exact" and brec["measured"] == brec["predicted"]
+          == scfg8.epochs * per_ep == stel8.bytes_streamed,
+          f"streaming SGD bytes {brec} against {scfg8.epochs} x {per_ep}")
+    se_ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(scfg8.epochs)]
+    st8 = p8["state"]
+    dx8 = max((torch.from_numpy(sfac8.x).to(dev) - st8.x).abs().max().item(),
+              (torch.from_numpy(sfac8.theta).to(dev) - st8.theta).abs().max().item())
+    bit8 = (torch.equal(torch.from_numpy(sfac8.x).to(dev), st8.x)
+            and torch.equal(torch.from_numpy(sfac8.theta).to(dev), st8.theta))
+    x_eval = sfac8.x[grid8.user_inv] if grid8.user_perm is not None else sfac8.x[:grid8.m]
+    s_rmse = float(als.rmse_padded(torch.from_numpy(np.ascontiguousarray(x_eval)).to(dev),
+                                   torch.from_numpy(sfac8.theta[:grid8.n]).to(dev), *test))
+    p8_noeval = [ms - p8["eval_ms"] for ms in p8["epoch_ms"]]
+    ps = stel8.phase_seconds
+    for h, ms, w0, w1, ms8 in zip(sh8, se_ms, walls, walls[1:], p8_noeval):
+        log(f"  streaming SGD epoch {h['epoch']} (lr {h['lr']:.5g}): {ms:.1f} ms on the card "
+            f"({w1 - w0:.3f} s wall); phase 8's epoch without its evaluation {ms8:.1f} ms")
+    log(f"  phase 8's sgd_tile on prebuilt plans {p8['sgd_ms']:.3f} ms an epoch; streamed "
+        f"{stel8.bytes_streamed} B ({per_ep} B an epoch: {per_ep / np.mean(se_ms[1:]) / 1e6:.2f} "
+        f"GB/s over epochs 2-3 on the card's clock); {stel8.waves_run} waves, "
+        f"{sum(plan_b)} B of slot plans an epoch")
+    log("  phase seconds: " + ", ".join(f"{k_} {v:.4f}" for k_, v in sorted(ps.items())))
+    log(f"  prefetch stall {ps.get('prefetch', 0.0):.4f} s = "
+        f"{ps.get('prefetch', 0.0) / ps['driver'] * 100:.1f} % of the run "
+        f"({ps['driver']:.4f} s); overlapped load {ps.get('prefetch_load', 0.0):.4f} s")
+    log(f"  final factors vs phase 8's: max |d| {dx8:.3g} (bit-equal: {bit8}); test RMSE "
+        f"{s_rmse:.5f} (phase 8: {p8['hist'][-1]['test_rmse']:.5f})")
+    log(f"  device memory: allocator peak over the resident {resident} B: {salloc} B "
+        f"({salloc / 2**20:.1f} MiB); schedule capacity {ssched8.capacity_bytes} B; slot plan "
+        f"peak {plan_peak} B; capacity + plan peak {ssched8.capacity_bytes + plan_peak} B; "
+        f"modelled meter peak {stel8.peak_bytes} B; largest plan {max(plan_b)} B")
+    log(render_ledger(stel8.ledger))
+    check(dx8 <= SGD_TOL, f"streaming SGD factors {dx8} from phase 8's")
+    check(abs(s_rmse - p8["hist"][-1]["test_rmse"]) <= 1e-3,
+          f"streaming SGD test RMSE {s_rmse} from phase 8's")
+    check(salloc <= ssched8.capacity_bytes + plan_peak,
+          f"streaming SGD allocator peak {salloc} B exceeds the capacity "
+          f"{ssched8.capacity_bytes} B plus the plan's peak {plan_peak} B")
+    # the kernel at the waves' own shapes: the first wave of each set, from
+    # the run's store and final factors, against both plain versions (these
+    # launches come after the counts were read)
+    lr8 = sgd.epoch_lr(scfg8, 0)
+    serr["sgd"] = 0.0
+    for s_ in range(g8):
+        i, j = ssched8.set_waves[s_][0].tiles[0]
+        idx_, val_, cnt_ = upload_tile(i, j)
+        xw = torch.from_numpy(sfac8.x[i * mb8:(i + 1) * mb8]).to(dev)
+        tw = torch.from_numpy(sfac8.theta[j * nb8:(j + 1) * nb8]).to(dev)
+        pl = sgd_driver.wave_plan(idx_, val_, cnt_, nb8)
+        x1, t1 = xw.clone(), tw.clone()
+        sgd_update.sgd_tile_planned_(x1, t1, pl, lr8, scfg8.lam)
+        for name, (x0, t0_) in (("planned plain", kref.sgd_tile_planned_plain(
+                                    xw, tw, pl, lr8, scfg8.lam)),
+                                ("plain", sgd_tile_plain(xw, tw, idx_[0], val_[0], cnt_[0],
+                                                         lr8, scfg8.lam))):
+            e = max((x1 - x0).abs().max().item(), (t1 - t0_).abs().max().item())
+            serr["sgd"] = max(serr["sgd"], e)
+            check(torch.allclose(x1, x0, atol=SGD_TOL, rtol=SGD_TOL)
+                  and torch.allclose(t1, t0_, atol=SGD_TOL, rtol=SGD_TOL),
+                  f"sgd_tile_planned_ disagrees with its {name} version on tile ({i}, {j})")
+        log(f"  set {s_} wave 0, tile ({i}, {j}): {int(cnt_.sum())} ratings, {pl.n_slots} "
+            f"slots, {pl.units.shape[0]} units; kernel vs planned plain and plain: max abs "
+            f"err so far {serr['sgd']:.3g}")
+        del idx_, val_, cnt_, xw, tw, x1, t1, x0, t0_, pl
+    for k in kernels:
+        if k["name"] == "sgd_tile":
+            k["max_abs_err_streaming"] = serr["sgd"]
+            k["max_abs_err"] = max(k["max_abs_err"], serr["sgd"])
+    del sfac8, tiles8
+
+    # -- 10d. the layout autotuner on phase 10b's ratings ------------------------------
+    q_ = store.q
+    t0 = time.perf_counter()
+    tres = autotune.tune_als_layout(r_full, q_, f=f)
+    log(f"autotune, analytic ALS sweep (q={q_}, f={f}): {time.perf_counter() - t0:.2f} s "
+        f"(host clock); winner {tres.config.to_obj()} at {tres.score} B an iteration")
+    for c in tres.candidates:
+        log(f"  n_bins={c['config']['n_bins']} k_multiple={c['config']['k_multiple']}: "
+            f"{c['score']} B an iteration, fill {c['fill']:.4f}, eq. (8) "
+            f"{c['bytes_per_device']} B a device")
+    wcfg = tres.config
+    if (wcfg.n_bins, wcfg.k_multiple) == (store.n_bins, store.k_multiple):
+        wstore, wsched, reused = store, sched, "phase 10b's store"
+    else:
+        wstore = RatingStore(r_full, q=q_, n_bins=wcfg.n_bins, k_multiple=wcfg.k_multiple)
+        wsched = build_schedule(plan_store(wstore, r_full.m, r_full.nnz, f, q_, cap, depth),
+                                r_full.m, r_full.n_cols, n_data=1)
+        reused = "a store built at that rung"
+    wst = predicted_stream_stats(wstore, wsched, f)
+    wbytes = sum(wst["x_bytes"]) + sum(wst["t_bytes"])
+    log(f"  the winner's bytes against predicted_stream_stats of {reused}: {wbytes} B")
+    check(wbytes == tres.score, f"the analytic winner prices {tres.score} B, its store "
+          f"predicts {wbytes} B")
+    del wstore, wsched
+    reset_counts()
+    t0 = time.perf_counter()
+    mres = autotune.tune_als_layout(r_full, q_, f=f, mode="measured")
+    torch.cuda.synchronize()
+    log(f"autotune, measured ALS sweep: {time.perf_counter() - t0:.1f} s (host clock, "
+        f"{len(mres.candidates)} stores built); winner {mres.config.to_obj()}")
+    ctune = read_counts("autotune (measured)")
+    for c in mres.candidates:
+        log(f"  n_bins={c['config']['n_bins']} k_multiple={c['config']['k_multiple']}: "
+            f"solve-X wave 0 {c['seconds'] * 1e3:.2f} ms (host clock around a synchronise), "
+            f"{c['score']} B an iteration")
+    t0 = time.perf_counter()
+    gres = autotune.tune_sgd_layout(r_full, 4)
+    log(f"autotune, SGD blocking sweep (g=4): {time.perf_counter() - t0:.1f} s (host clock); "
+        f"winner {gres.config.to_obj()}; " + "; ".join(
+            f"per_tile_k={c['config']['per_tile_k']} degree_sort={c['config']['degree_sort']}"
+            f": {c['score']} slots, fill {c['fill']:.4f}" for c in gres.candidates))
+    del gres
+    with tempfile.TemporaryDirectory() as td:
+        cpath = str(Path(td) / "tune_cache.json")
+        s1 = RatingStore(r_full, q=q_, n_bins="auto", tune_cache=cpath)
+        s2 = RatingStore(r_full, q=q_, n_bins="auto", tune_cache=cpath)
+        cdata = json.loads(Path(cpath).read_text())
+    centry = cdata["entries"].get(s1.tune["key"], {})
+    log(f"  RatingStore(n_bins='auto') twice through one cache file: hits "
+        f"{s1.tune['cache_hit']}, {s2.tune['cache_hit']}; n_bins {s1.n_bins}, {s2.n_bins}; "
+        f"key {s1.tune['key']}; provenance {centry.get('provenance')}")
+    check(not s1.tune["cache_hit"] and s2.tune["cache_hit"] and s1.n_bins == s2.n_bins
+          and s1.tune["key"] == s2.tune["key"] and s1.tune["key"].endswith("|cuda")
+          and cdata["schema"] == autotune.TUNECACHE_SCHEMA
+          and centry.get("provenance", {}).get("backend") == "cuda",
+          "the tune cache did not miss and then hit under the cuda backend tag")
+    del s1, s2, r_full, store
     for k in kernels:
         if k["name"] in launches:
             k["launches_streaming"] = launches[k["name"]]
+        if k["name"] in ("fused_herm", "batch_solve"):
+            k["launches_autotune"] = ctune[k["name"]]
 
     log(smi.splitlines()[0])
     log(json.dumps({"kernels": kernels}))

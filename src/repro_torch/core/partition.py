@@ -137,6 +137,9 @@ def plan_for(
     acc_bytes: int = 0,
     bin_fills: Optional[Sequence[Tuple[int, int]]] = None,
     auto: bool = False,
+    degrees=None,
+    tune_cache=None,
+    k_multiple: int = 8,
 ) -> PartitionPlan:
     """Cost a *given* (p, q) choice — the forced-plan entry point.
 
@@ -149,13 +152,22 @@ def plan_for(
     nnz)`` pairs (``RatingStore.bin_fill_pairs()``) whose aggregate
     ``sum(slots) / sum(nnz)`` overrides the scalar ``fill``.
 
-    ``auto=True`` (the layout autotuner's pricing) is not ported yet.
+    ``auto=True`` derives ``bin_fills`` itself: ``degrees`` (the per-row
+    nnz counts) is swept through ``core.autotune.tune_plan_fills`` — the
+    argmin of padded slots over the (n_bins, k_multiple) ladder, cached in
+    ``tune_cache`` — and the winning rung's per-bin pairs price R_shard.
     """
-    if auto:
-        raise NotImplementedError(
-            "plan_for(auto=True) needs the layout autotuner, which the port "
-            "does not have yet (ROADMAP Queue 1 item 10)")
     hbm_bytes = device_memory_bytes(hbm_bytes)
+    if auto:
+        from repro_torch.core import autotune
+
+        if degrees is None:
+            raise ValueError("plan_for(auto=True) needs degrees= (per-row nnz counts)")
+        res = autotune.tune_plan_fills(m, n, nnz, f, p, q, degrees=degrees,
+                                       k_multiple=k_multiple, cache=tune_cache)
+        want = res.config.to_obj()
+        bin_fills = next(c["bin_fills"] for c in res.candidates
+                         if c["config"] == want)
     if bin_fills:
         slots = sum(int(s) for s, _ in bin_fills)
         true_nnz = sum(int(z) for _, z in bin_fills)

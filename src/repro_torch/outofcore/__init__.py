@@ -9,10 +9,12 @@ port's counterpart of the reference's ``repro/outofcore``, p = 1.
 - ``runtime``  — the modelled-device meter, telemetry, per-wave checkpoints;
 - ``driver``   — ``run_streaming_als``: solve-X and accumulate-Theta waves,
   preloaded through ``data.prefetch.Prefetcher`` on a side CUDA stream,
-  with the plan-vs-actual ledger.
+  with the plan-vs-actual ledger;
+- ``sgd_driver`` — ``run_streaming_sgd``: SGD tile waves through the same
+  prefetcher, one planned kernel launch per same-K group of a wave.  The
+  streaming hybrid is ``sgd.hybrid.run_streaming_hybrid``.
 
-Not ported yet: streaming SGD and the streaming hybrid (``sgd_driver``),
-and the mesh path (ROADMAP Queue 1 items 7 and 9).
+Not ported yet: the mesh path (ROADMAP Queue 1 item 9).
 """
 from repro_torch.outofcore.driver import run_streaming_als
 from repro_torch.outofcore.runtime import (MemoryMeter, SimulatedFailure,
@@ -22,6 +24,7 @@ from repro_torch.outofcore.schedule import (IterationSchedule, SgdEpochSchedule,
                                             build_schedule, build_sgd_schedule,
                                             required_capacity_bytes,
                                             sgd_required_capacity_bytes)
+from repro_torch.outofcore.sgd_driver import run_streaming_sgd
 from repro_torch.outofcore.store import (FactorStore, RatingStore, TileStore,
                                          binned_nbytes)
 
@@ -30,5 +33,5 @@ __all__ = [
     "SgdEpochSchedule", "SimulatedFailure", "StreamTelemetry", "TileStore",
     "TileWave", "Wave", "WaveCheckpointer", "WaveItem", "binned_nbytes",
     "build_schedule", "build_sgd_schedule", "required_capacity_bytes",
-    "run_streaming_als", "sgd_required_capacity_bytes",
+    "run_streaming_als", "run_streaming_sgd", "sgd_required_capacity_bytes",
 ]

@@ -44,6 +44,7 @@ Not ported yet: the mesh path (``mesh=``, ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional
 
 import numpy as np
@@ -161,7 +162,8 @@ def run_streaming_als(
                 acc_restored = (tree["a_acc"], tree["b_acc"], tree["c_acc"])
     reg.gauge("resumed_from_step").set(start_step)
     if factors is None:
-        st = als_mod.als_init(ratings.m, n, cfg)
+        # drawn on the host: the run never holds the whole factors on the card
+        st = als_mod.als_init(ratings.m, n, dataclasses.replace(cfg, device="cpu"))
         x0 = np.zeros((m_pad, f), np.float32)
         x0[:ratings.m] = st.x.cpu().numpy()
         factors = FactorStore.from_arrays(x0, st.theta)
@@ -403,7 +405,7 @@ def run_streaming_als(
                  n_data=n_data, waves=W, iterations=cfg.iters - it0,
                  f=f, m_pad=m_pad, n=n, mode=cfg.mode, n_bins=n_bins,
                  resumed_from_step=start_step, topology="",
-                 autotune=None, device=str(dev),
+                 autotune=getattr(ratings, "tune", None), device=str(dev),
                  phase_seconds=reg.phase_seconds())
     led.record("peak_device_bytes", sched.capacity_bytes, meter.peak_bytes,
                unit="bytes", check="le")

@@ -112,21 +112,31 @@ class RatingStore:
     ``rt_binned``); the driver then streams each wave bin-wise through
     ``x_slice_binned`` / ``theta_batch_binned``.
 
+    ``n_bins="auto"`` resolves the bin count (and the bins'
+    ``k_multiple``) through ``core.autotune.tune_als_layout`` — the argmin
+    of predicted streamed bytes over the config ladder, cached in
+    ``tune_cache`` (a ``core.autotune.TuneCache`` or a path) — and records
+    the decision in ``self.tune`` for the driver's ledger run context.
+
     Not ported yet: ``p > 1`` (the mesh path's model-shard layouts, ROADMAP
-    Queue 1 item 9) and ``n_bins="auto"`` (the layout autotuner, item 10).
+    Queue 1 item 9).
     """
 
     def __init__(self, r: PaddedELL, q: int, k_multiple: int = 8, p: int = 1,
-                 n_bins=1):
-        if n_bins == "auto":
-            raise NotImplementedError(
-                "RatingStore(n_bins='auto') needs the layout autotuner, which "
-                "the port does not have yet (ROADMAP Queue 1 item 10)")
+                 n_bins=1, tune_cache=None):
         if p != 1:
             raise NotImplementedError(
                 "RatingStore(p > 1) builds the mesh path's model-shard "
                 "layouts, which the port does not have yet (ROADMAP Queue 1 "
                 "item 9)")
+        self.tune = None
+        if n_bins == "auto":
+            from repro_torch.core import autotune
+
+            res = autotune.tune_als_layout(r, q=q, p=p, k_multiple=k_multiple,
+                                           cache=tune_cache)
+            n_bins, k_multiple = res.config.n_bins, res.config.k_multiple
+            self.tune = res.to_obj()
         if q < 1 or n_bins < 1:
             raise ValueError(f"need q >= 1 and n_bins >= 1, got q={q} n_bins={n_bins}")
         self.m = r.m                       # true (unpadded) user count

@@ -16,9 +16,6 @@ the g sets covers every tile exactly once per epoch.
 Each tile is stored as a block-local PaddedELL slice, built through the
 same ``csr_from_coo`` / ``pad_csr_fast`` path as the ALS side, with K
 padded to the grid-wide maximum so every tile presents one shape.
-
-``per_tile_k="auto"`` (the reference's layout autotuner) is not ported
-yet and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -69,6 +66,10 @@ class BlockGrid:
     #: Factors inside the grid live in PERMUTED row order; map back with
     #: ``user_inv`` before any global-coordinate evaluation.
     user_perm: np.ndarray | None = None
+    #: the autotuner's decision (``core.autotune.TuneResult.to_obj()``)
+    #: when the grid was built with ``per_tile_k="auto"``; the streaming
+    #: SGD driver records it in the ledger's run context.  None otherwise.
+    tune: dict | None = None
 
     @property
     def mb(self) -> int:
@@ -145,7 +146,7 @@ def tile_k_ladder(k: int, k_multiple: int = 8) -> int:
 def block_coo(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
               m: int, n: int, g: int, k_multiple: int = 8,
               per_tile_k: bool | str = False,
-              degree_sort: bool = False) -> BlockGrid:
+              degree_sort: bool = False, tune_cache=None) -> BlockGrid:
     """Partition a rating COO into a g x g BlockGrid.
 
     Block sizes are ``mb = ceil(m/g)`` users x ``nb = ceil(n/g)`` items;
@@ -157,12 +158,27 @@ def block_coo(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
     leading blocks and ``per_tile_k`` cuts the fill on power-law data.
     Sorting re-partitions the grid, so it changes the (still exact)
     Hogwild visit order.
+
+    ``per_tile_k="auto"`` chooses both knobs (``per_tile_k`` and
+    ``degree_sort``, which it overrides) through
+    ``core.autotune.tune_sgd_layout`` — the argmin of dispatched padded
+    slots over the blocking ladder, cached in ``tune_cache`` — and records
+    the decision on ``grid.tune``.
     """
     assert g >= 1
     if per_tile_k == "auto":
-        raise NotImplementedError(
-            "per_tile_k='auto' needs the layout autotuner (repro.core.autotune), "
-            "which the port does not have yet; pass per_tile_k and degree_sort")
+        from repro_torch.core.autotune import tune_sgd_layout
+
+        ptr, cc, vv = csr_from_coo(rows, cols, vals, m)
+        ell = pad_csr_fast(ptr, cc, vv, n, k_multiple=k_multiple)
+        res = tune_sgd_layout(ell, g, k_multiple=k_multiple, cache=tune_cache)
+        grid = res.grid
+        if grid is None:       # a cache hit carries the config only
+            grid = block_coo(rows, cols, vals, m, n, g, k_multiple=k_multiple,
+                             per_tile_k=res.config.per_tile_k,
+                             degree_sort=res.config.degree_sort)
+        grid.tune = res.to_obj()
+        return grid
     user_perm = None
     if degree_sort:
         deg = np.bincount(rows, minlength=m)
@@ -210,10 +226,11 @@ def block_coo(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
 
 def block_ell(ell: PaddedELL, g: int, k_multiple: int = 8,
               per_tile_k: bool | str = False,
-              degree_sort: bool = False) -> BlockGrid:
+              degree_sort: bool = False, tune_cache=None) -> BlockGrid:
     """Blocked view of an existing row-major PaddedELL (the ALS layout) —
-    the shard-sharing entry point the hybrid driver uses."""
+    the shard-sharing entry point the hybrid driver uses.  Accepts
+    ``per_tile_k="auto"`` like :func:`block_coo`."""
     rows, cols, vals = ell_to_coo(ell)
     return block_coo(rows, cols, vals, ell.m, ell.n_cols, g,
                      k_multiple=k_multiple, per_tile_k=per_tile_k,
-                     degree_sort=degree_sort)
+                     degree_sort=degree_sort, tune_cache=tune_cache)

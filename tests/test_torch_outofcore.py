@@ -123,9 +123,10 @@ def test_plan_partitions_and_budget_default(problem):
         b = p_part.plan_partitions(*args[:4], hbm_bytes=args[4], n_data=4)
         assert _fields(a) == _fields(b)
     assert p_part.streaming_acc_bytes(40, 8) == r_part.streaming_acc_bytes(40, 8)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        p_part.plan_for(SPEC.m, SPEC.n, r.nnz, SPEC.f, p=1, q=4, hbm_bytes=1 << 22,
-                        auto=True)
+    # the autotuner's pricing (plan_for(auto=True)) prices as the reference's
+    auto = dict(hbm_bytes=1 << 22, auto=True, degrees=np.asarray(r.cnt))
+    assert _fields(p_part.plan_for(SPEC.m, SPEC.n, r.nnz, SPEC.f, p=1, q=4, **auto)) == \
+        _fields(r_part.plan_for(SPEC.m, SPEC.n, r.nnz, SPEC.f, p=1, q=4, **auto))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="hbm_bytes"):
             p_part.plan_for(SPEC.m, SPEC.n, r.nnz, SPEC.f, p=1, q=4)
@@ -168,10 +169,16 @@ def test_rating_store_matches_reference(problem, q, n_bins):
         _assert_binned_equal(a.x_slice_binned(lo, hi), b.x_slice_binned(lo, hi))
 
 
-def test_store_options_not_ported_raise(problem):
+def test_store_auto_bins_and_the_mesh_guard(problem):
+    """``n_bins="auto"`` builds the reference's autotuned store; ``p > 1``
+    still raises (the mesh path, Queue 1 item 9)."""
     r, _, _ = problem
-    with pytest.raises(NotImplementedError, match="item 10"):
-        p_store.RatingStore(r, q=4, n_bins="auto")
+    a = r_store.RatingStore(r, q=4, n_bins="auto")
+    b = p_store.RatingStore(r, q=4, n_bins="auto")
+    assert (a.n_bins, a.bin_fill_pairs(), a.worst_fill) == \
+        (b.n_bins, b.bin_fill_pairs(), b.worst_fill)
+    assert b.tune["config"] == a.tune["config"] and b.tune["score"] == a.tune["score"]
+    _assert_binned_equal(a.r_binned, b.r_binned)
     with pytest.raises(NotImplementedError, match="item 9"):
         p_store.RatingStore(r, q=4, p=2)
 

@@ -293,11 +293,18 @@ def test_diagonal_sets_conflict_free_and_equal_reference(g):
         [ref_blocking.tile_k_ladder(k) for k in range(1, 70)]
 
 
-def test_per_tile_k_auto_is_not_ported_yet():
+@pytest.mark.parametrize("skewed", [False, True])
+def test_per_tile_k_auto_equals_reference(skewed):
+    """``per_tile_k="auto"`` builds the reference's auto grid bit for bit
+    and records the same decision (its cache key apart from the backend)."""
     rng = np.random.default_rng(0)
-    rows, cols, vals = _random_coo(rng, 16, 8, 40)
-    with pytest.raises(NotImplementedError, match="autotuner"):
-        port_blocking.block_coo(rows, cols, vals, 16, 8, 2, per_tile_k="auto")
+    rows, cols, vals = (_skewed_coo if skewed else _random_coo)(rng, 96, 48, 1500)
+    got = port_blocking.block_coo(rows, cols, vals, 96, 48, 4, per_tile_k="auto")
+    want = ref_blocking.block_coo(rows, cols, vals, 96, 48, 4, per_tile_k="auto")
+    _assert_grids_equal(got, want)
+    assert got.tune["key"].rsplit("|", 1)[0] == want.tune["key"].rsplit("|", 1)[0]
+    assert {k: v for k, v in got.tune.items() if k != "key"} == \
+        {k: v for k, v in want.tune.items() if k != "key"}
 
 
 # ---------------------------------------------------------------------------
