@@ -86,12 +86,37 @@ Phases, in order; any failure stops the run with a non-zero exit:
    ``predicted_stream_stats``; the measured sweep (one solve-X wave per
    rung on the card); the SGD blocking sweep at g=4; and
    ``RatingStore(n_bins="auto")`` twice through a cache file, a miss and
-   then a hit under the ``cuda`` backend tag.
+   then a hit under the ``cuda`` backend tag;
+11. the multi-device path, one host program driving a mesh whose cells
+   all share this one card (results and launches, not scaling):
+   11a. netflix-mini: ``distributed.su_als.make_su_als_fns(...).iteration``
+   on data=2 x model=4 (one-phase) and pod=2 x data=2 x model=2 (one- and
+   two-phase), kernels against phase 4's single-device kernel iteration
+   and against the same mesh in plain mode (2e-3), ``row_block=64``
+   against 0 (1e-4); streaming mesh ALS on data=4 x model=2 (the reduce's
+   tree stage runs), uniform and binned, against in-core (1e-4), killed
+   after waves 1 and 3 and resumed bit-equal; streaming mesh SGD with 2
+   and 3 workers against in-core (1e-4);
+   11b. binned streaming mesh ALS at quarter-Netflix, f=100, on data=2 x
+   model=2 (p=2) under phase 10b's 1.5 GiB budget a cell, 3 iterations:
+   RMSE within 1e-4 of phase 6, an all-ok ledger, the allocator's peak at
+   most 4 cells x the schedule's capacity; both ALS kernels against their
+   plain versions at that run's shapes (solve-X wave 0 in each cell's
+   column block, reduced and each owned slice solved, which must match the
+   wave entry point; every stacked bin of every batch on each cell, the
+   split path included; each theta shard's reduce-and-solve, which must
+   reproduce the run's Theta); ms per iteration, the reduce's seconds and
+   bytes, the partials brought to the host a wave, the stall;
+   11c. streaming mesh SGD at quarter-Netflix on phase 8's grid, 4 tiles
+   a wave, one to each cell of data=2 x model=2, 3 epochs: factors within
+   1e-4 of phase 8's, ms per epoch.
 
-The second-to-last line of output is a JSON ``kernels`` record; the last
-line is ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
-repository's ``src/`` beside this file, it exits non-zero and prints no
-result.
+The second-to-last line of output is a JSON ``kernels`` record (with each
+kernel's ``launches_mesh``, its launches in phase 11's runs, and for the
+ALS kernels ``max_abs_err_mesh``, their error against the plain versions
+at 11b's shapes); the last line is ``{"ok": true, "device": {...}}``.
+Without a GPU, or without the repository's ``src/`` beside this file, it
+exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -118,6 +143,10 @@ SGD_TOL = 1e-5                         # tests/test_sgd.py:97, :285
 STREAM_RMSE_TOL = 1e-4                 # tests/test_outofcore.py:181-182
 BINNED_TOL = 1e-5                      # tests/test_outofcore.py:474-475
 SOLVE_NB = 16                          # kNB of csrc/batch_solve.cu
+SU_TOL = 2e-3                          # tests/test_distributed.py:73-74, :92-93
+MESH_TOL = 1e-4                        # tests/test_distributed.py:110-111,
+                                       # tests/test_mesh_streaming.py:189-192, :354-356
+PLAN_PEAK_INT64 = 126_199_808          # phase 10c's plan build before its int32 form
 PLAIN_CHUNK_ELEMS = 1 << 28            # gathered floats per plain-version chunk
 
 
@@ -172,7 +201,7 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.core import als
-    from repro_torch.core.partition import plan_for
+    from repro_torch.core.partition import plan_for, streaming_acc_bytes
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import ref as kref
     from repro_torch.kernels.batch_solve import batch_solve_cuda, batch_solve_plain
@@ -181,6 +210,7 @@ def main() -> int:
                                                split_slots)
     from repro_torch.kernels import sgd_update
     from repro_torch.kernels.sgd_update import sgd_tile_cuda, sgd_tile_plain
+    from repro_torch.obs import Tracer
     from repro_torch.obs.ledger import validate_ledger
     from repro_torch.obs.report import render_ledger
     from repro_torch.core import autotune
@@ -422,8 +452,10 @@ def main() -> int:
         cfg = als.AlsConfig(f=spec.f, lam=spec.lam, mode=mode)
         st = als.state_from_numpy(x_init, t_init, device=dev)
         reset_counts()
-        for _ in range(2):
+        for i in range(2):
             st = als.als_iteration(st, triplet(r), triplet(rt), cfg)
+            if i == 0 and mode == "kernel":     # phase 11a's single-device iteration
+                p4 = {"spec": spec, "r": r, "rt": rt, "init": (x_init, t_init), "first": st}
         torch.cuda.synchronize()
         if mode == "kernel":
             read_counts("netflix-mini")
@@ -1070,7 +1102,7 @@ def main() -> int:
     # in-batch K, the heavy items split), and the accumulated systems' solve
     serr = {"herm": 0.0, "solve": 0.0}
 
-    def herm_vs_plain(fixed, idx, val, cnt, diag, what):
+    def herm_vs_plain(fixed, idx, val, cnt, diag, what, err=serr):
         A, B = fused_herm_cuda(fixed, idx, val, cnt, diag)
         step = max(1, PLAIN_CHUNK_ELEMS // (idx.shape[1] * fixed.shape[1]))
         for lo in range(0, idx.shape[0], step):
@@ -1079,16 +1111,16 @@ def main() -> int:
             check(torch.allclose(A[sl], A0, atol=HERM_ATOL, rtol=HERM_RTOL)
                   and torch.allclose(B[sl], B0, atol=HERM_ATOL, rtol=HERM_RTOL),
                   f"fused_herm disagrees with its plain version on {what}")
-            serr["herm"] = max(serr["herm"], (A[sl] - A0).abs().max().item(),
-                               (B[sl] - B0).abs().max().item())
+            err["herm"] = max(err["herm"], (A[sl] - A0).abs().max().item(),
+                              (B[sl] - B0).abs().max().item())
             del A0, B0
         return A, B
 
-    def solve_vs_plain(A, B, what):
+    def solve_vs_plain(A, B, what, err=serr):
         x1, x0 = batch_solve_cuda(A, B), batch_solve_plain(A, B)
         check(torch.allclose(x1, x0, atol=SOLVE_TOL, rtol=SOLVE_TOL),
               f"batch_solve disagrees with its plain version on {what}")
-        serr["solve"] = max(serr["solve"], (x1 - x0).abs().max().item())
+        err["solve"] = max(err["solve"], (x1 - x0).abs().max().item())
         return x1
 
     w0 = sched.waves[0]
@@ -1218,7 +1250,8 @@ def main() -> int:
         f"build {np.mean(plan_ms):.2f} ms mean, {min(plan_ms):.2f}..{max(plan_ms):.2f} ms; "
         f"{np.mean(plan_b):.0f} B mean, {min(plan_b)}..{max(plan_b)} B; the allocator's "
         f"peak of building one alone at most {plan_peak} B ({plan_peak / 2**20:.1f} MiB, "
-        f"tile {plan_peak_at[0]}, {plan_peak_at[1]} ratings)")
+        f"tile {plan_peak_at[0]}, {plan_peak_at[1]} ratings; the int64 build peaked at "
+        f"{PLAN_PEAK_INT64} B)")
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1368,8 +1401,348 @@ def main() -> int:
           and cdata["schema"] == autotune.TUNECACHE_SCHEMA
           and centry.get("provenance", {}).get("backend") == "cuda",
           "the tune cache did not miss and then hit under the cuda backend tag")
-    del s1, s2, r_full, store
+    del s1, s2, store
+
+    # -- 11. the multi-device path on cells that share one card --------------------
+    from repro_torch.distributed import collectives as coll, su_als
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sparse.padded import partition_padded
+
+    card = f"cuda:{torch.cuda.current_device()}"
+    launches_mesh = {"fused_herm": 0, "batch_solve": 0, "sgd_tile": 0}
+
+    def cells(shape, axes):
+        mesh_ = make_mesh(shape, axes, devices=[card] * int(np.prod(shape)))
+        log(f"  {mesh_.describe()}: {mesh_.size} cells share one card")
+        return mesh_
+
+    def count_mesh(phase: str, path) -> None:
+        c = read_counts(phase, path)
+        for k_ in launches_mesh:
+            launches_mesh[k_] += c[k_]
+
+    def fdiff(a, b) -> float:
+        return max(float((a[0] - b[0]).abs().max()), float((a[1] - b[1]).abs().max()))
+
+    def plan_mesh(store, m_, nnz, f_, q, n_data, hbm, depth=2):
+        fill = (dict(bin_fills=store.bin_fill_pairs()) if store.n_bins > 1
+                else dict(fill=store.worst_fill))
+        return plan_for(m_, store.n, nnz, f_, p=store.p, q=q, n_data=n_data, eps=0,
+                        buffers=depth + 2, acc_bytes=streaming_acc_bytes(store.n, f_),
+                        hbm_bytes=hbm, **fill)
+
+    log(f"phase 11: the multi-device path, single-controller; every mesh's cells share "
+        f"one card ({card}, {torch.cuda.get_device_name(0)}) and run one after another "
+        f"on one stream: this checks results and launches, it measures no scaling")
+    # 11a. netflix-mini: SU-ALS on two meshes against phase 4's single-device
+    # kernel iteration and against plain mode; row blocks
+    r, rt, spec = p4["r"], p4["rt"], p4["spec"]
+    x0, t0_ = (torch.from_numpy(np.asarray(a, np.float32)).to(dev) for a in p4["init"])
+    first = (p4["first"].x, p4["first"].theta)
+    for name, shape, axes, schemes in (
+            ("data=2 x model=4", (2, 4), ("data", "model"), ("one_phase",)),
+            ("pod=2 x data=2 x model=2", (2, 2, 2), ("pod", "data", "model"),
+             ("one_phase", "two_phase"))):
+        mesh = cells(shape, axes)
+        _, p_ = su_als.mesh_axes(mesh)
+        rdev = su_als.shard_ratings(partition_padded(r, p_), mesh)
+        rtdev = su_als.shard_ratings(partition_padded(rt, p_), mesh)
+        for scheme in schemes:
+            out = {}
+            for mode in ("ref", "kernel"):
+                _, _, it = su_als.make_su_als_fns(mesh, spec.lam, scheme=scheme, mode=mode)
+                reset_counts()
+                out[mode] = it(x0, t0_, rdev, rtdev)
+                torch.cuda.synchronize()
+                if mode == "kernel":
+                    count_mesh(f"SU-ALS {name} {scheme}", ("fused_herm", "batch_solve"))
+            d1, d0 = fdiff(out["kernel"], first), fdiff(out["kernel"], out["ref"])
+            log(f"  SU-ALS {name} {scheme}, one iteration: max|d| vs phase 4's single-device "
+                f"kernel iteration {d1:.3g}, vs this mesh in plain mode {d0:.3g}")
+            check(d1 <= SU_TOL and d0 <= SU_TOL,
+                  f"SU-ALS {name} {scheme} is {d1} / {d0} from single-device / plain")
+        if len(shape) == 2:
+            _, _, it_b = su_als.make_su_als_fns(mesh, spec.lam, row_block=64)
+            reset_counts()
+            blocked = it_b(x0, t0_, rdev, rtdev)
+            torch.cuda.synchronize()
+            count_mesh(f"SU-ALS {name} row_block=64", ("fused_herm", "batch_solve"))
+            d = fdiff(blocked, out["kernel"])
+            log(f"  SU-ALS {name} row_block=64 vs row_block=0: max|d| {d:.3g}")
+            check(d <= MESH_TOL, f"SU-ALS row_block=64 is {d} from row_block=0")
+    del rdev, rtdev, out, blocked
+
+    # streaming mesh ALS on data=4 x model=2 (two fast domains: the reduce's
+    # tree stage runs), uniform and binned, against in-core; kill and resume
+    r, rt, rte, _ = synth.make_synthetic_ratings(spec, seed=2, noise=0.1)
+    mesh42 = cells((4, 2), ("data", "model"))
+    cfg = als.AlsConfig(f=spec.f, lam=spec.lam, iters=3)
+    st0 = als.als_init(r.m, rt.m, cfg)
+    inc, inc_hist = als.als_train(triplet(r), triplet(rt), r.m, rt.m, cfg,
+                                  test=triplet(rte), init=st0)
+    mstreams = {}
+    for name, n_bins in (("uniform", 1), ("binned", 4)):
+        store = RatingStore(r, q=8, p=2, n_bins=n_bins)
+        sched = build_schedule(plan_mesh(store, r.m, r.nnz, spec.f, 8, 4, 1 << 30),
+                               r.m, rt.m, n_data=4)
+        x_st = np.zeros((store.m_pad, spec.f), np.float32)
+        x_st[:r.m] = st0.x.cpu().numpy()
+        reset_counts()
+        fac, shist, tel = run_streaming_als(
+            store, sched, cfg, mesh=mesh42, factors=FactorStore.from_arrays(x_st, st0.theta),
+            train_eval=triplet(r), test_eval=triplet(rte))
+        torch.cuda.synchronize()
+        count_mesh(f"netflix-mini mesh streaming {name}", ("fused_herm", "batch_solve"))
+        check_ledger(tel, f"netflix-mini mesh streaming {name}")
+        d_rmse = max(max(abs(a["train_rmse"] - b["train_rmse"]), abs(a["test_rmse"] - b["test_rmse"]))
+                     for a, b in zip(shist, inc_hist))
+        dfac = max(np.abs(fac.x[:r.m] - inc.x.cpu().numpy()).max(),
+                   np.abs(fac.theta - inc.theta.cpu().numpy()).max())
+        log(f"  netflix-mini mesh streaming {name} (q=8, p=2, n_data=4, {len(sched.waves)} waves "
+            f"a half, {tel.topology}): max |dRMSE| vs in-core {d_rmse:.3g}, max |dfactor| "
+            f"{dfac:.3g}; reduce bytes fast {tel.reduce_fast_bytes} slow {tel.reduce_slow_bytes}; "
+            f"ledger {len(tel.ledger['records'])} records all ok")
+        check(len(shist) == len(inc_hist) and d_rmse <= MESH_TOL and dfac <= MESH_TOL,
+              f"netflix-mini mesh streaming {name} is {d_rmse} / {dfac} from in-core")
+        check(tel.reduce_slow_bytes > 0, "the reduce's tree stage did not run")
+        mstreams[name] = (store, sched, x_st, fac)
+    store, sched, x_st, fac = mstreams["uniform"]
+    for kill in (1, 3):
+        with tempfile.TemporaryDirectory() as ck:
+            try:
+                run_streaming_als(store, sched, cfg, mesh=mesh42, ckpt_dir=ck,
+                                  factors=FactorStore.from_arrays(x_st, st0.theta),
+                                  fail_after_waves=kill)
+                fail(f"the mesh kill after wave {kill} did not fire")
+            except SimulatedFailure:
+                pass
+            rfac, _, rtel = run_streaming_als(store, sched, cfg, mesh=mesh42, ckpt_dir=ck)
+        same = same_factors(rfac, fac)
+        log(f"  netflix-mini mesh streaming kill after wave {kill}, resume from step "
+            f"{rtel.resumed_from_step}: factors bit-equal to the uninterrupted run: {same}")
+        check(same and rtel.resumed_from_step == kill,
+              f"mesh streaming resume after a kill at wave {kill} is not bit-equal")
+    # streaming mesh SGD: one tile a cell, 2 and 3 workers, against in-core
+    mcfg = sgd.SgdConfig(f=spec.f, lam=spec.lam, lr=0.1, epochs=2, seed=3,
+                         schedule="inverse_time", decay=1.0)
+    mgrid = blocking.block_ell(r, g=4)
+    minc, _ = sgd.sgd_train(mgrid, mcfg, test=triplet(rte))
+    for nw in (2, 3):
+        reset_counts()
+        sfac, _, stel = run_streaming_sgd(TileStore(mgrid), build_sgd_schedule(mgrid, spec.f,
+                                                                               n_workers=nw),
+                                          mcfg, mesh=mesh42)
+        torch.cuda.synchronize()
+        count_mesh(f"netflix-mini mesh streaming SGD n_workers={nw}", ("sgd_tile",))
+        check_ledger(stel, f"netflix-mini mesh streaming SGD n_workers={nw}")
+        dx = max(np.abs(sfac.x - minc.x.cpu().numpy()).max(),
+                 np.abs(sfac.theta - minc.theta.cpu().numpy()).max())
+        log(f"  netflix-mini mesh streaming SGD n_workers={nw}: max |dfactor| vs in-core {dx:.3g}")
+        check(dx <= MESH_TOL, f"mesh streaming SGD n_workers={nw} is {dx} from in-core")
+    del mstreams, store, sched, fac, rfac, minc, mgrid, sfac, inc
+
+    # 11b. binned streaming mesh ALS at quarter-Netflix, f=100, on data=2 x
+    # model=2 under phase 10b's 1.5 GiB budget a cell
+    spec = synth.SynthSpec("netflix/4", m=120_047, n=17_770, nnz=24_750_000,
+                           f=100, lam=0.05)
+    f = spec.f
+    mesh22 = cells((2, 2), ("data", "model"))
+    q = 8
+    while True:
+        t0 = time.perf_counter()
+        store = RatingStore(r_full, q=q, p=2, n_bins=8)
+        build_s = time.perf_counter() - t0
+        plan = plan_mesh(store, r_full.m, r_full.nnz, f, q, 2, cap, depth)
+        log(f"  quarter-Netflix mesh store q={q} p=2: built in {build_s:.2f} s; "
+            f"plan {plan.describe()}")
+        if plan.fits or q >= 1024:
+            break
+        q *= 2
+    check(plan.fits, f"no q up to {q} fits the {cap} B budget a cell")
+    sched = build_schedule(plan, r_full.m, r_full.n_cols, n_data=2)
+    part_b = sum(2 * st_.rows * (f * f + f) * 4 for st_ in store.rt_stacked)
+    log(f"  schedule: {sched.describe()}; {len(store.rt_stacked)} stacked bins, rows "
+        f"{[st_.rows for st_ in store.rt_stacked]}, K {[st_.K for st_ in store.rt_stacked]}; "
+        f"store host arrays {store.host_nbytes} B, fills {store.fill_breakdown()}")
+    cfg = als.AlsConfig(f=f, lam=spec.lam, iters=3, seed=0)
+    train_eval = triplet(r_full)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    marks = [torch.cuda.Event(enable_timing=True)]
+    walls = [time.perf_counter()]
+    tr = Tracer()               # splits the solve phase between the halves
+    reset_counts()
+    marks[0].record()
+    fac, shist, tel = run_streaming_als(store, sched, cfg, prefetch_depth=depth, mesh=mesh22,
+                                        train_eval=train_eval, test_eval=test,
+                                        callback=on_wave_iteration, tracer=tr)
+    torch.cuda.synchronize()
+    count_mesh("quarter-Netflix mesh streaming", ("fused_herm", "batch_solve"))
+    alloc_peak = torch.cuda.max_memory_allocated() - resident
+    check_ledger(tel, "quarter-Netflix mesh streaming")
+    s_ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(cfg.iters)]
+    for h, ms, w0, w1, h0 in zip(shist, s_ms, walls, walls[1:], incore_hist):
+        log(f"  mesh streaming iteration {h['iteration']}: {ms:.1f} ms on the card's clock "
+            f"({w1 - w0:.3f} s wall) train RMSE {h['train_rmse']:.5f} (phase 6 "
+            f"{h0['train_rmse']:.5f}) test RMSE {h['test_rmse']:.5f} (phase 6 {h0['test_rmse']:.5f})")
+    d_rmse = max(max(abs(a["train_rmse"] - b["train_rmse"]), abs(a["test_rmse"] - b["test_rmse"]))
+                 for a, b in zip(shist, incore_hist))
+    ps = tel.phase_seconds
+    log(f"  max |dRMSE| vs phase 6 {d_rmse:.3g}; {tel.waves_run} waves, {tel.bytes_streamed} B "
+        f"streamed; partials brought to the host {part_b} B a wave (f32 A and B of every "
+        f"stacked bin, both data shards), added in float64 there")
+    half_s = {nm: sum(e.dur for e in tr.spans(cat="solve") if e.name == nm) / 1e6
+              for nm in ("als.wave_x", "als.wave_theta")}
+    log(f"  solve phase by half over {cfg.iters} iterations: solve-X waves "
+        f"{half_s['als.wave_x']:.4f} s, accumulate-Theta waves {half_s['als.wave_theta']:.4f} s")
+    log(f"  reduce ({tel.topology}): {ps.get('reduce', 0.0):.4f} s over {cfg.iters} "
+        f"iterations, fast-link bytes {tel.reduce_fast_bytes}, slow-link bytes "
+        f"{tel.reduce_slow_bytes}")
+    log("  phase seconds: " + ", ".join(f"{k_} {v:.4f}" for k_, v in sorted(ps.items())))
+    log(f"  prefetch stall {ps.get('prefetch', 0.0):.4f} s = "
+        f"{ps.get('prefetch', 0.0) / ps['driver'] * 100:.1f} % of the run ({ps['driver']:.4f} s)")
+    log(f"  device memory: allocator peak over the resident {resident} B: {alloc_peak} B "
+        f"({alloc_peak / 2**30:.3f} GiB); 4 cells x the schedule's capacity "
+        f"{sched.capacity_bytes} B = {4 * sched.capacity_bytes} B; modelled meter peak "
+        f"(one cell) {tel.peak_bytes} B")
+    check(len(shist) == len(incore_hist) and d_rmse <= MESH_TOL,
+          f"quarter-Netflix mesh streaming RMSE is {d_rmse} from phase 6")
+    check(alloc_peak <= 4 * sched.capacity_bytes,
+          f"mesh streaming allocator peak {alloc_peak} B exceeds 4 cells x capacity "
+          f"{sched.capacity_bytes} B")
+    check(bool(np.isfinite(fac.x).all() and np.isfinite(fac.theta).all()),
+          "non-finite mesh streaming factors")
+    log(render_ledger(tel.ledger))
+
+    # the mesh path's two kernels against their plain versions at the shapes
+    # this run gave them, from its store, schedule and final factors
+    # (launched after the counts were read): solve-X wave 0 cut into each
+    # cell's column block (a theta row shard, diag = lam * cnt with no
+    # fallback), reduced over each data shard's column cells and each owned
+    # slice solved; every stacked bin of every batch on each cell (a data
+    # shard's X slice, the cell's half of the bin's rows, the heavy items
+    # split), accumulated per theta row; and each theta shard's
+    # reduce-and-solve, which must reproduce the run's Theta
+    merr = {"herm": 0.0, "solve": 0.0}
+    groups = su_als.column_groups(mesh22)
+    n_data, p_ = su_als.mesh_axes(mesh22)
+    npp = store.n // p_
+    theta_dev = torch.from_numpy(fac.theta).to(dev)
+    w0 = sched.waves[0]
+    xw = store.x_slice_mesh_triplet(w0.row_start, w0.row_stop)
+    idx, val, cnt = (torch.from_numpy(a).to(dev) for a in xw)
+    m_loc, K_loc = idx.shape[0] // n_data, idx.shape[1] // p_
+    pad = -m_loc % p_
+    x_rows = []
+    for d, devs in enumerate(groups):
+        rows = slice(d * m_loc, (d + 1) * m_loc)
+        A_c, B_c, c_c = [], [], []
+        for k, cell in enumerate(devs):
+            cols = slice(k * K_loc, (k + 1) * K_loc)
+            i_, v_, c_ = (torch.cat([t, t.new_zeros((pad,) + t.shape[1:])]).contiguous()
+                          for t in (idx[rows, cols], val[rows, cols], cnt[rows, k]))
+            Ak, Bk = herm_vs_plain(theta_dev[k * npp:(k + 1) * npp].to(cell), i_.to(cell),
+                                   v_.to(cell), c_.to(cell), spec.lam * c_.to(cell, torch.float32),
+                                   f"solve-X wave 0's block (data {d}, column {k})", merr)
+            A_c.append(Ak)
+            B_c.append(Bk)
+            c_c.append(c_.to(cell, torch.float32))
+        owned = []
+        for k, (a, b, c_) in enumerate(zip(*(coll.reduce_scatter_flat(t)
+                                              for t in (A_c, B_c, c_c)))):
+            a.diagonal(dim1=-2, dim2=-1).add_((c_ <= 0).to(a.dtype)[:, None])
+            owned.append(solve_vs_plain(a, b, f"solve-X wave 0's slice (data {d}, column {k})",
+                                        merr))
+        x_rows.append(torch.cat(owned)[:m_loc])
+        del A_c, B_c, c_c, owned, a, b
+    x_replay = torch.cat(x_rows)
+    x_entry = torch.from_numpy(su_als.make_wave_update_fn(mesh22, spec.lam, mode="kernel")(
+        su_als.shard_rows(theta_dev, mesh22), *xw)).to(dev)
+    dx_w0 = (x_replay - x_entry).abs().max().item()
+    A = torch.zeros((store.n, f, f), dtype=torch.float64, device=dev)
+    B = torch.zeros((store.n, f), dtype=torch.float64, device=dev)
+    c = torch.zeros((store.n,), dtype=torch.float64, device=dev)
+    t_calls, t_split = 0, 0
+    for wave in sched.waves:
+        stacked = store.theta_wave_stacked([b.index for b in wave.batches])
+        for d, b in enumerate(wave.batches):
+            x_dev = torch.from_numpy(fac.x[b.row_start:b.row_stop]).to(dev)
+            for sidx, sval, scnt, sitems in stacked:
+                rpp = sidx.shape[1] // p_
+                for k, cell in enumerate(groups[d]):
+                    rows = slice(k * rpp, (k + 1) * rpp)
+                    i_, v_, c_ = (torch.from_numpy(np.ascontiguousarray(a[d, rows])).to(cell)
+                                  for a in (sidx, sval, scnt))
+                    Ab, Bb = herm_vs_plain(x_dev.to(cell), i_, v_, c_,
+                                           spec.lam * c_.to(torch.float32),
+                                           f"batch {b.index}'s stacked bin K={sidx.shape[2]} "
+                                           f"(data {d}, column {k})", merr)
+                    live = c_ > 0
+                    items = torch.from_numpy(sitems[d, rows]).to(dev)[live.to(dev)]
+                    A.index_add_(0, items, Ab[live].to(dev, torch.float64))
+                    B.index_add_(0, items, Bb[live].to(dev, torch.float64))
+                    c.index_add_(0, items, c_[live].to(dev, torch.float64))
+                    t_calls += 1
+                    t_split += sidx.shape[2] > S
+                    del Ab, Bb
+    shards = []
+    for k, cell in enumerate(groups[0]):
+        lo, hi = k * npp, (k + 1) * npp
+        Ak, Bk, ck = (t[lo:hi].to(cell, torch.float32) for t in (A, B, c))
+        Ak.diagonal(dim1=-2, dim2=-1).add_((ck <= 0).to(Ak.dtype)[:, None])
+        shards.append(solve_vs_plain(Ak, Bk, f"theta shard {k}'s reduce-and-solve (n/p={npp})",
+                                     merr).to(dev))
+        del Ak, Bk, ck
+    theta1 = torch.cat(shards)
+    dtheta = (theta1 - theta_dev).abs().max().item()
+    log(f"  mesh shapes, kernel vs plain: solve-X wave 0 on {n_data} x {p_} cells ({m_loc} "
+        f"rows x K={K_loc} a cell, {m_loc + pad} rows reduced and {(m_loc + pad) // p_} "
+        f"solved a cell), the replay vs the wave entry point max|d| {dx_w0:.3g} (bit-equal: "
+        f"{torch.equal(x_replay, x_entry)}); accumulate-Theta {t_calls} cell calls over "
+        f"{len(store.rt_stacked)} stacked bins, {t_split} split (K > {S}); reduce-and-solve "
+        f"of {p_} theta shards of {npp} rows: max|dA,dB| {merr['herm']:.3g}, max|dx| "
+        f"{merr['solve']:.3g}; the re-solved Theta vs the run's: max|d| {dtheta:.3g} "
+        f"(bit-equal: {torch.equal(theta1, theta_dev)})")
+    check(t_split > 0, "no stacked bin of the mesh theta half took fused_herm's split path")
+    check(torch.allclose(x_replay, x_entry, atol=SOLVE_TOL, rtol=SOLVE_TOL),
+          f"the replayed solve-X wave 0 is {dx_w0} from the wave entry point's")
+    check(torch.allclose(theta1, theta_dev, atol=SOLVE_TOL, rtol=SOLVE_TOL),
+          f"the re-solved mesh Theta is {dtheta} from the mesh streaming run's")
     for k in kernels:
+        e = {"fused_herm": merr["herm"], "batch_solve": merr["solve"]}.get(k["name"])
+        if e is not None:
+            k["max_abs_err_mesh"] = e
+            k["max_abs_err"] = max(k["max_abs_err"], e)
+    del A, B, c, shards, theta1, theta_dev, x_dev, x_rows, x_replay, x_entry, idx, val, cnt
+    del store, fac, train_eval, r_full
+
+    # 11c. streaming mesh SGD at quarter-Netflix: phase 8's grid, 4 tiles a
+    # wave, one to each cell of data=2 x model=2, 3 epochs
+    ssched = build_sgd_schedule(grid8, f, n_workers=4, prefetch_depth=depth)
+    marks = [torch.cuda.Event(enable_timing=True)]
+    walls = [time.perf_counter()]
+    reset_counts()
+    marks[0].record()
+    sfac, sh, stel = run_streaming_sgd(TileStore(grid8), ssched, scfg8, prefetch_depth=depth,
+                                       mesh=mesh22, callback=on_sgd_epoch)
+    torch.cuda.synchronize()
+    count_mesh("quarter-Netflix mesh streaming SGD", ("sgd_tile",))
+    check_ledger(stel, "quarter-Netflix mesh streaming SGD")
+    se_ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(scfg8.epochs)]
+    dx = max((torch.from_numpy(sfac.x).to(dev) - st8.x).abs().max().item(),
+             (torch.from_numpy(sfac.theta).to(dev) - st8.theta).abs().max().item())
+    ps = stel.phase_seconds
+    for h, ms, w0, w1 in zip(sh, se_ms, walls, walls[1:]):
+        log(f"  mesh streaming SGD epoch {h['epoch']}: {ms:.1f} ms on the card's clock "
+            f"({w1 - w0:.3f} s wall)")
+    log(f"  {ssched.describe()}; final factors vs phase 8's max |d| {dx:.3g}; stall "
+        f"{ps.get('prefetch', 0.0) / ps['driver'] * 100:.1f} %")
+    check(dx <= MESH_TOL, f"quarter-Netflix mesh streaming SGD factors {dx} from phase 8's")
+    del sfac
+
+    for k in kernels:
+        k["launches_mesh"] = launches_mesh.get(k["name"], 0)
         if k["name"] in launches:
             k["launches_streaming"] = launches[k["name"]]
         if k["name"] in ("fused_herm", "batch_solve"):

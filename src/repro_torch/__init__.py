@@ -20,8 +20,13 @@ each counterpart is easy to find:
                        plan-vs-actual ledger (the reference's schema);
 - ``data``             the host->device prefetcher (pinned staging, a
                        side CUDA stream);
-- ``outofcore``        single-device out-of-core streaming ALS: rating
-                       store, wave schedule, runtime and wave driver.
+- ``outofcore``        out-of-core streaming ALS and SGD: rating store,
+                       wave schedule, runtime and wave drivers, on one
+                       device or on a mesh;
+- ``launch``           meshes of cells (one device each, cells may share
+                       a card);
+- ``distributed``      SU-ALS over a mesh, the reduce-scatter collectives
+                       and the topology-aware host reduction.
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 without a GPU they raise instead of falling back.

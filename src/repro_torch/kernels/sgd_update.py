@@ -95,21 +95,35 @@ def build_plan(idx: torch.Tensor, val: torch.Tensor, cnt: torch.Tensor, *,
         raise ValueError(f"p={p} must be at least 1")
     dev = idx.device
     R, K = idx.shape
-    live = torch.arange(K, device=dev)[None, :] < cnt[:, None].long()
-    r_, k_ = live.nonzero(as_tuple=True)             # row-major: rows ascending
-    items = idx[r_, k_].long()
-    n_items = int(items.max()) + 1 if items.numel() else 1
-    order = torch.sort(k_ * n_items + items, stable=True).indices
-    ks, items = k_[order], items[order]
-    rows = r_[order].int()
-    vals = val[r_, k_][order].float()
-    L = int(ks.numel())
+    # the live entries row-major (rows ascending, then slots): row r's
+    # slots 0..cnt[r]-1.  Entry-sized arrays stay int32 where the values
+    # fit, and the (slot, item) pair is one sort key that also gives both
+    # back, so building the plan peaks at a fraction of its int64 form.
+    pdt = torch.int32 if R * K < 2 ** 31 else torch.int64
+    deg = cnt.clamp(0, K).to(pdt)
+    L = int(deg.sum())
+    r_ = torch.repeat_interleave(torch.arange(R, dtype=pdt, device=dev), deg, output_size=L)
+    k_ = torch.arange(L, dtype=pdt, device=dev) - (torch.cumsum(deg, 0, dtype=pdt) - deg).index_select(0, r_)
+    items = idx.reshape(-1).index_select(0, r_ * K + k_)
+    n_items = int(items.max()) + 1 if L else 1
+    kdt = torch.int32 if K * n_items < 2 ** 31 else torch.int64
+    key = k_.to(kdt) * n_items + items.to(kdt)
+    del k_, items
+    key, order = torch.sort(key, stable=True)        # by (slot, item, row)
+    rows = r_.index_select(0, order)
+    del r_, order
+    vals = val.reshape(-1).index_select(0, rows * K + torch.div(key, n_items, rounding_mode="floor")).float()
+    rows = rows.int()
 
     new = torch.ones(L, dtype=torch.bool, device=dev)
-    new[1:] = (ks[1:] != ks[:-1]) | (items[1:] != items[:-1])
+    new[1:] = key[1:] != key[:-1]
     g_start = new.nonzero().squeeze(1)
+    del new
     g_len = torch.diff(g_start, append=torch.tensor([L], device=dev))
-    g_item, g_k = items[g_start], ks[g_start]
+    g_key = key[g_start].long()
+    del key
+    g_k = torch.div(g_key, n_items, rounding_mode="floor")
+    g_item = g_key - g_k * n_items
     slots, per_slot = torch.unique_consecutive(g_k, return_counts=True)
     S = int(slots.numel())
     g_slot = torch.repeat_interleave(torch.arange(S, device=dev), per_slot)

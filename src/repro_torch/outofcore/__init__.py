@@ -1,6 +1,7 @@
-"""Out-of-core wave scheduling on one device (paper §4.3/§4.4): factorize
-an R whose ratings and Hermitians do not fit on the card at once — the
-port's counterpart of the reference's ``repro/outofcore``, p = 1.
+"""Out-of-core wave scheduling (paper §4.3/§4.4): factorize an R whose
+ratings and Hermitians do not fit on the card at once — the port's
+counterpart of the reference's ``repro/outofcore``, on one device or on
+the cells of a ``launch.mesh.Mesh`` (``mesh=``, p > 1 theta shards).
 
 - ``store``    — ``RatingStore`` (R and the q-partitioned R^T on the host,
   uniform or degree-binned), ``FactorStore``, ``TileStore``;
@@ -13,8 +14,6 @@ port's counterpart of the reference's ``repro/outofcore``, p = 1.
 - ``sgd_driver`` — ``run_streaming_sgd``: SGD tile waves through the same
   prefetcher, one planned kernel launch per same-K group of a wave.  The
   streaming hybrid is ``sgd.hybrid.run_streaming_hybrid``.
-
-Not ported yet: the mesh path (ROADMAP Queue 1 item 9).
 """
 from repro_torch.outofcore.driver import run_streaming_als
 from repro_torch.outofcore.runtime import (MemoryMeter, SimulatedFailure,

@@ -251,13 +251,6 @@ def build_sgd_schedule(
     return sched
 
 
-def _single_device(sched: IterationSchedule) -> None:
-    if sched.p != 1:
-        raise NotImplementedError(
-            f"a p={sched.p} schedule streams the mesh path's layouts, which "
-            "the port does not have yet (ROADMAP Queue 1 item 9)")
-
-
 def required_capacity_bytes(store, sched: IterationSchedule, f: int,
                             prefetch_depth: int = 2) -> int:
     """Per-device bytes the streaming driver will actually keep resident.
@@ -270,37 +263,52 @@ def required_capacity_bytes(store, sched: IterationSchedule, f: int,
     The honest counterpart of the planner's eq. (8) estimate, computed from
     the store's *real* padding fills.
 
-    A degree-binned store streams bin-wise cuts: per-wave payloads vary
-    with where each bin's rows fall, so the model bounds every wave by the
-    maximum per-batch payload — still ``le`` vs the meter, and never above
-    the uniform-K model.  p = 1 only (the mesh layouts are not ported).
+    On a ``p > 1`` schedule (mesh streaming) every theta-sized resident —
+    the fixed Theta, the Hermitian accumulators, the solved shard — divides
+    by p, and the solve-X wave payload is the device's single column block
+    of the p-partitioned slice; only the fresh X slice of the accumulate
+    half stays replicated across the model axis (every shard's partial
+    Hermitian reads the whole batch).
+
+    A degree-binned store streams bin-wise cuts: at p = 1 per-wave
+    payloads vary with where each bin's rows fall, so the model bounds
+    every wave by the maximum per-batch payload — still ``le`` vs the
+    meter, and never above the uniform-K model.  At p > 1 the theta half
+    streams the batch-uniform stacks (``rt_stacked``): every batch presents
+    the same per-bin shapes, so its payload is one exact constant.
     """
-    _single_device(sched)
-    n_data = sched.n_data
+    n_data, p = sched.n_data, sched.p
     wave_rows = sched.waves[0].rows
     bufs = prefetch_depth + 2
     binned = store.r_binned is not None
-    # solve-X half: resident Theta + wave triplets + solve scratch
-    theta_bytes = store.n * f * 4
+    stacked = store.rt_stacked
+    # solve-X half: resident Theta shard + wave triplets + solve scratch
+    theta_bytes = store.n * f * 4 // p
     if binned:
         x_payload = max(
             _binned_span_bytes(store.r_binned, w.row_start, w.row_stop)
             // len(w.batches)
             for w in sched.waves)
     else:
-        x_payload = (wave_rows * (store.r.K * 8 + 4)) // n_data
+        K = store.r.K if p == 1 else store.r_model_parts.idx.shape[-1]
+        x_payload = (wave_rows * (K * 8 + 4)) // n_data
     x_scratch = (wave_rows * (f * f + 2 * f) * 4) // n_data
     x_half = theta_bytes + bufs * x_payload + x_scratch
-    # accumulate-Theta half: resident A/B/c + per-batch R^T rows + the
-    # batch's X slice
+    # accumulate-Theta half: resident A/B/c shard + per-batch R^T rows of
+    # the owned theta shard + the batch's (replicated) X slice
     q, n, K_loc = store.rt_shape
-    acc_bytes = n * (f * f + f + 1) * 4
+    acc_bytes = n * (f * f + f + 1) * 4 // p
     if binned:
         t_payload = max(binned_nbytes(b) for b in store.rt_binned) \
             + (sched.m_pad // q) * f * 4
+    elif stacked is not None:
+        # one batch's per-bin triplets, 1/p on each device (rows_b rows are
+        # sharded over the model axis), plus the replicated fresh X slice
+        batch_trip = sum(st.rows * (st.K * 8 + 4) for st in stacked)
+        t_payload = batch_trip // p + (sched.m_pad // q) * f * 4
     else:
-        t_payload = n * (K_loc * 8 + 4) + (sched.m_pad // q) * f * 4
-    t_half = acc_bytes + bufs * t_payload + n * f * 4
+        t_payload = n * (K_loc * 8 + 4) // p + (sched.m_pad // q) * f * 4
+    t_half = acc_bytes + bufs * t_payload + n * f * 4 // p
     return max(x_half, t_half)
 
 
@@ -337,12 +345,22 @@ def predicted_stream_stats(store, sched: IterationSchedule, f: int) -> dict:
     and ``*_nnz`` the true ratings under them, from the host-resident cnt
     arrays.  Per-wave granularity keeps the prediction exact under ragged
     last waves and mid-iteration resume: the driver sums exactly the waves
-    it executes.  On a degree-binned store the per-wave numbers sum each
-    bin's contiguous span at that bin's own K.  p = 1 only.
+    it executes.  On a ``p > 1`` schedule the solve-X side uses the mesh
+    triplet layout (``x_slice_mesh_triplet``'s pre-padding shapes).  On a
+    degree-binned store the per-wave numbers sum each bin's contiguous span
+    at that bin's own K.  A stacked store (``p > 1`` with ``n_bins > 1``)
+    prices the theta half from the batch-uniform ``rt_stacked`` shapes
+    while the solve-X side stays on the uniform mesh layout.
     """
-    _single_device(sched)
+    p = sched.p
     binned = store.r_binned is not None
     cnt_rows = store.r.cnt                    # [m_pad], padded rows cnt = 0
+    if p == 1:
+        per_row_bytes, per_row_slots = store.r.K * 8 + 4, store.r.K
+    else:
+        K_loc = store.r_model_parts.idx.shape[-1]
+        per_row_bytes = p * (K_loc * 8 + 4)   # [rows, p*K_loc] x2 + [rows, p]
+        per_row_slots = p * K_loc
     x_bytes, x_slots, x_nnz = [], [], []
     for w in sched.waves:
         if binned:
@@ -351,13 +369,18 @@ def predicted_stream_stats(store, sched: IterationSchedule, f: int) -> dict:
             x_slots.append(_binned_span_slots(
                 store.r_binned, w.row_start, w.row_stop))
         else:
-            x_bytes.append(w.rows * (store.r.K * 8 + 4))   # idx + val, cnt
-            x_slots.append(w.rows * store.r.K)
+            x_bytes.append(w.rows * per_row_bytes)
+            x_slots.append(w.rows * per_row_slots)
         x_nnz.append(int(cnt_rows[w.row_start:w.row_stop].sum()))
     q, n, K_t = store.rt_shape
     if binned:
         shard_bytes = [binned_nbytes(b) for b in store.rt_binned]
         shard_slots = [int(b.padded_slots) for b in store.rt_binned]
+    elif store.rt_stacked is not None:
+        # batch-uniform stacks: every batch streams the same per-bin shapes
+        stacked = store.rt_stacked
+        shard_bytes = [sum(st.rows * (st.K * 8 + 4) for st in stacked)] * q
+        shard_slots = [sum(st.rows * st.K for st in stacked)] * q
     else:
         shard_bytes = [n * (K_t * 8 + 4)] * q       # one R^T shard's triplet
         shard_slots = [n * K_t] * q

@@ -1,6 +1,5 @@
-"""Streaming SGD driver: execute a tile-wave schedule end to end, on one
-device (p = 1) — the port's copy of the reference's
-``repro/outofcore/sgd_driver.py`` without its mesh path.
+"""Streaming SGD driver: execute a tile-wave schedule end to end — the
+port's copy of the reference's ``repro/outofcore/sgd_driver.py``.
 
 CuMF_SGD's block grid carries the same out-of-core property as the ALS
 waves (cuMF §3.3): a (user-block, item-block) tile only ever touches its
@@ -46,7 +45,15 @@ packages compare.  The reference's ``vmem/sgd_tile_pallas`` record has no
 counterpart: the CUDA kernel uses no dynamic shared memory
 (``kernels/budgets.py``).
 
-Not ported yet: the mesh path (``mesh=``, ROADMAP Queue 1 item 9).
+With ``mesh`` set (a ``launch.mesh.Mesh`` with a data axis and at least
+one more) each wave's tiles go one to a cell over the joint
+``("data", "model", "pod")`` axes — CuMF_SGD's workers made concrete —
+and each cell sweeps its tile on its own device: its own slot plan and
+one planned kernel launch (mode ``"kernel"``), or the stacked plain sweep
+of one tile (``"ref"``).  The wave's triplets are preloaded to the mesh's
+home device and each cell takes its tile from there (a view on a shared
+card, a peer copy on another).  Cells without a tile (a ragged wave) do
+nothing, where the reference sweeps an empty tile.
 """
 from __future__ import annotations
 
@@ -129,15 +136,24 @@ def run_streaming_sgd(
     The telemetry carries the plan-vs-actual ledger on the reference's
     schema and record names, less ``vmem/sgd_tile_pallas``.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_streaming_sgd(mesh=...) is the multi-device path, which the "
-            "port does not have yet (ROADMAP Queue 1 item 9)")
     if (tiles.g, tiles.mb, tiles.nb, tiles.K) != (sched.g, sched.mb, sched.nb, sched.K):
         raise ValueError("TileStore and SgdEpochSchedule were built for different grids")
     if cfg.f != sched.f:
         raise ValueError(f"SgdConfig f={cfg.f} but the schedule has f={sched.f}")
-    dev = resolve_device(cfg.device)
+    cells = None
+    if mesh is None:
+        dev = resolve_device(cfg.device)
+    else:
+        joint = tuple(a for a in ("data", "model", "pod") if a in mesh.axis_names)
+        if "data" not in joint or len(joint) < 2:
+            raise ValueError(f"mesh needs a data axis and one more, got {mesh.axis_names}")
+        # the reference's P(joint) order: data-major over the joint axes
+        order = [mesh.axis_names.index(a) for a in joint]
+        cells = list(np.transpose(mesh.devices, order).reshape(-1))
+        if sched.n_workers > len(cells):
+            raise ValueError(f"schedule wants {sched.n_workers} workers, mesh has "
+                             f"{len(cells)} cells")
+        dev = mesh.home
     g, mb, nb, f = sched.g, sched.mb, sched.nb, cfg.f
     wpe = sched.waves_per_epoch
     fac_bytes = (mb + nb) * f * 4          # one worker's two factor blocks
@@ -177,15 +193,16 @@ def run_streaming_sgd(
 
     def _sweep(lr: float, ii, jj, idx, val, cnt):
         """The group's tiles (user blocks ``ii``, item blocks ``jj``) swept
-        from the host store's current blocks; returns the updated blocks
-        ``[t, mb, f]``, ``[t, nb, f]`` as numpy and the bytes fetched."""
+        on the device their triplets lie on, from the host store's current
+        blocks; returns the updated blocks ``[t, mb, f]``, ``[t, nb, f]`` as
+        numpy and the bytes fetched."""
         t = len(ii)
         # the plan first: its build's temporaries are freed before the
         # factor blocks come onto the card
         plan = wave_plan(idx, val, cnt, nb) if cfg.mode == "kernel" else None
         x_host, th_host = _blocks("x", ii, mb), _blocks("theta", jj, nb)
-        x_w = torch.from_numpy(x_host).to(dev)
-        th_w = torch.from_numpy(th_host).to(dev)
+        x_w = torch.from_numpy(x_host).to(idx.device)
+        th_w = torch.from_numpy(th_host).to(idx.device)
         if plan is not None:
             x_w, th_w = x_w.reshape(t * mb, f), th_w.reshape(t * nb, f)
             sgd_tile_planned_(x_w, th_w, plan, lr, cfg.lam)
@@ -241,13 +258,19 @@ def run_streaming_sgd(
                     meter.alloc(f"fac_in{wave.index}", fac_bytes)
                     meter.alloc(f"fac_out{wave.index}", fac_bytes)
                     for sel, idx, val, cnt in groups:
-                        ii = [wave.tiles[c][0] for c in sel]
-                        jj = [wave.tiles[c][1] for c in sel]
-                        x_np, t_np, nbytes = _sweep(lr, ii, jj, idx, val, cnt)
-                        fetched += nbytes
-                        for k, (i, j) in enumerate(zip(ii, jj)):
-                            factors.write_slice("x", i * mb, (i + 1) * mb, x_np[k])
-                            factors.write_slice("theta", j * nb, (j + 1) * nb, t_np[k])
+                        # one sweep of the group, or on a mesh one per tile,
+                        # on the cell the tile's place in the wave gives it
+                        parts = ([(sel, (idx, val, cnt))] if cells is None else
+                                 [((c,), tuple(a[k:k + 1].to(cells[c]) for a in (idx, val, cnt)))
+                                  for k, c in enumerate(sel)])
+                        for part, trip in parts:
+                            ii = [wave.tiles[c][0] for c in part]
+                            jj = [wave.tiles[c][1] for c in part]
+                            x_np, t_np, nbytes = _sweep(lr, ii, jj, *trip)
+                            fetched += nbytes
+                            for k, (i, j) in enumerate(zip(ii, jj)):
+                                factors.write_slice("x", i * mb, (i + 1) * mb, x_np[k])
+                                factors.write_slice("theta", j * nb, (j + 1) * nb, t_np[k])
                     meter.free(f"fac_out{wave.index}")
                     meter.free(f"fac_in{wave.index}")
                     meter.free(f"tilewave{wave.index}")
@@ -297,7 +320,7 @@ def run_streaming_sgd(
     meas_slots = int(reg.counter("padded_slots").value)
     meas_nnz = int(reg.counter("nnz_streamed").value)
     meas_ratio = meas_slots / meas_nnz if meas_nnz else 0.0
-    led = Ledger(solver="sgd", mesh=False, g=g, mb=mb, nb=nb,
+    led = Ledger(solver="sgd", mesh=mesh is not None, g=g, mb=mb, nb=nb,
                  f=f, n_workers=sched.n_workers,
                  epochs=cfg.epochs - ep0, mode=cfg.mode,
                  per_tile_k=tiles.grid.tile_K is not None,

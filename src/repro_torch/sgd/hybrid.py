@@ -111,6 +111,7 @@ def run_streaming_hybrid(
     keep: int = 3,
     prefetch_depth: int = 2,
     mesh=None,
+    topology=None,
     callback=None,
 ):
     """Out-of-core hybrid: streaming ALS warm start, streaming SGD refine.
@@ -128,8 +129,9 @@ def run_streaming_hybrid(
     phase-scoped (``<ckpt_dir>/als`` and ``<ckpt_dir>/sgd`` hold trees of
     different shapes); once the SGD phase has committed a wave, a restart
     skips the warm start — the SGD checkpoint already embeds it.
-    ``mesh=`` raises in both drivers (ROADMAP Queue 1 item 9); the
-    reference's ``topology=`` belongs to that path and is not taken.
+    ``mesh`` (a ``launch.mesh.Mesh``) runs both phases on its cells;
+    ``topology`` is the ALS phase's reduction topology
+    (``run_streaming_als``).
     """
     # imported here: repro_torch.outofcore imports repro_torch.sgd.train, so
     # a module-level import back into repro_torch.sgd would be circular
@@ -158,7 +160,7 @@ def run_streaming_hybrid(
         fac, als_hist, als_tel = run_streaming_als(
             ratings, als_sched, als_cfg, ckpt_dir=als_ck, keep=keep,
             prefetch_depth=prefetch_depth, test_eval=test_eval,
-            train_eval=train_eval, mesh=mesh,
+            train_eval=train_eval, mesh=mesh, topology=topology,
             callback=lambda it, rec: tagged("als")(None, rec))
         # re-block the streamed factors to the grid's padded shape: the ALS
         # store is [m_pad, f] / [n, f], the SGD store [g*mb, f] / [g*nb, f]

@@ -387,3 +387,153 @@ def bin_padded(ell: PaddedELL, n_bins: int,
         rows.append(np.zeros(0, dtype=np.int64))
     return BinnedELL(bins=tuple(bins), rows=tuple(rows),
                      n_cols=ell.n_cols, m=ell.m)
+
+
+# ---------------------------------------------------------------------------
+# Batch-uniform stacked bins (mesh streaming's accumulate-Theta half)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class BinShardStack:
+    """One degree bin of a q-partitioned matrix, stacked batch-uniform.
+
+    Mesh streaming feeds the accumulate-Theta half one ``[n_data, rows, K]``
+    stack per wave (``distributed.su_als.make_wave_herm_fn`` shards the row
+    dim over the model axis), which requires every batch's bin to present
+    the same shape.  The caps are therefore chosen globally across all q
+    batches while per-batch membership stays free: batch ``j``'s members
+    occupy the leading ``cnt[j] > 0`` rows and the tail is padding rows
+    (``cnt = 0``, exact-zero partials under the weighted-lambda Hermitian
+    with ``diag_fallback=False``).
+
+    ``items[j, u]`` is the global row (item) id stored at stacked slot
+    ``(j, u)`` — the host-side scatter coordinate of the per-bin partials;
+    padding slots carry item 0 with all-zero contributions.  ``rows`` is
+    always a multiple of the model-axis size the stack was built for.
+    """
+
+    idx: np.ndarray    # [q, rows, K] int32, batch-local columns
+    val: np.ndarray    # [q, rows, K] float32
+    cnt: np.ndarray    # [q, rows]    int32 (0 on padding rows)
+    items: np.ndarray  # [q, rows]    int64 global row ids (0 on padding)
+    cap: int           # assignment cap of this bin (degree ladder rung)
+
+    @property
+    def q(self) -> int:
+        return self.idx.shape[0]
+
+    @property
+    def rows(self) -> int:
+        return self.idx.shape[1]
+
+    @property
+    def K(self) -> int:
+        return self.idx.shape[2]
+
+    @property
+    def nnz(self) -> int:
+        return int(self.cnt.sum())
+
+    @property
+    def padded_slots(self) -> int:
+        return int(self.q) * int(self.rows) * int(self.K)
+
+    @property
+    def nbytes(self) -> int:
+        """Streamed bytes across all q batches (idx + val + cnt; ``items``
+        is host-side scatter bookkeeping, never transferred)."""
+        return int(self.idx.nbytes + self.val.nbytes + self.cnt.nbytes)
+
+
+def _stack_bins(cnt: np.ndarray, K_loc: int, fill_rows, n_bins: int,
+                k_multiple: int, p: int, caps) -> Tuple[BinShardStack, ...]:
+    """The stacks of :func:`stack_binned_parts` from the per-batch row
+    counts ``cnt [q, n]`` and the uniform width ``K_loc``;
+    ``fill_rows(j, members, kb, idx_out, val_out)`` writes batch ``j``'s
+    member rows, cut to ``kb`` slots, into ``idx_out``/``val_out``."""
+    q, n = cnt.shape
+    cnt = cnt.astype(np.int64)
+    kmax = int(cnt.max()) if n else 0
+    if caps is None:
+        caps = bin_caps(kmax, n_bins, k_multiple)
+    else:
+        caps = sorted(int(c) for c in caps)
+        if not caps or caps[-1] < kmax:
+            raise ValueError(f"caps {caps} do not cover max degree {kmax}")
+    assign = np.searchsorted(np.asarray(caps, dtype=np.int64),
+                             np.maximum(cnt, 1), side="left")   # [q, n]
+    stacks: list[BinShardStack] = []
+    for b, cap in enumerate(caps):
+        members = [np.nonzero(assign[j] == b)[0].astype(np.int64)
+                   for j in range(q)]
+        max_members = max((int(mb.size) for mb in members), default=0)
+        if max_members == 0:
+            continue
+        kb = min(round_k(int(max(int(cnt[j][mb].max()) if mb.size else 0
+                                 for j, mb in enumerate(members))),
+                         k_multiple), K_loc)
+        rows_b = -(-max_members // p) * p
+        idx = np.zeros((q, rows_b, kb), dtype=np.int32)
+        val = np.zeros((q, rows_b, kb), dtype=np.float32)
+        cnt_b = np.zeros((q, rows_b), dtype=np.int32)
+        items = np.zeros((q, rows_b), dtype=np.int64)
+        for j, mb in enumerate(members):
+            fill_rows(j, mb, kb, idx[j, :mb.size], val[j, :mb.size])
+            cnt_b[j, :mb.size] = cnt[j, mb]
+            items[j, :mb.size] = mb
+        stacks.append(BinShardStack(idx=idx, val=val, cnt=cnt_b,
+                                    items=items, cap=int(cap)))
+    if not stacks:       # n == 0: one all-padding stack keeps shapes legal
+        stacks.append(BinShardStack(
+            idx=np.zeros((q, p, k_multiple), np.int32),
+            val=np.zeros((q, p, k_multiple), np.float32),
+            cnt=np.zeros((q, p), np.int32),
+            items=np.zeros((q, p), np.int64), cap=k_multiple))
+    return tuple(stacks)
+
+
+def stack_binned_parts(parts: PaddedELL, n_bins: int,
+                       k_multiple: int = 8, p: int = 1,
+                       caps: "list[int] | None" = None
+                       ) -> Tuple[BinShardStack, ...]:
+    """Batch-uniform degree binning of a ``partition_padded`` output.
+
+    ``parts`` carries a leading batch axis (idx ``[q, n, K_loc]``); bin caps
+    come from the global max batch-local degree so all q batches share one
+    cap ladder, then each bin is stacked ``[q, rows_b, K_b]`` with
+    ``rows_b`` the max per-batch member count rounded up to a multiple of
+    ``p`` (the model-axis row sharding) and ``K_b`` the tight rounded max
+    member degree (never above the parent K, so the column cut drops only
+    all-padding slots).  Bins empty in every batch are dropped.
+    """
+    if parts.idx.ndim != 3:
+        raise ValueError(f"parts need a leading batch axis, got {parts.idx.shape}")
+
+    def fill(j, mb, kb, idx_out, val_out):
+        idx_out[:] = parts.idx[j, mb, :kb]
+        val_out[:] = parts.val[j, mb, :kb]
+
+    return _stack_bins(parts.cnt, parts.idx.shape[2], fill, n_bins,
+                       k_multiple, p, caps)
+
+
+def stack_binned_csr(csrs, K_loc: int, n_bins: int, k_multiple: int = 8,
+                     p: int = 1, caps: "list[int] | None" = None
+                     ) -> Tuple[BinShardStack, ...]:
+    """:func:`stack_binned_parts` of the q batches given as CSR
+    ``(ptr, cols, vals)`` triples (rows' entries in the order the uniform
+    stack holds them) and that stack's width ``K_loc``, without
+    materializing the ``[q, n, K_loc]`` stack: equal arrays."""
+    cnt = np.stack([np.diff(ptr) for ptr, _, _ in csrs]).astype(np.int32)
+
+    def fill(j, mb, kb, idx_out, val_out):
+        ptr, cols, vals = csrs[j]
+        deg = (ptr[mb + 1] - ptr[mb]).astype(np.int64)
+        off = np.cumsum(deg) - deg
+        slot = np.arange(int(deg.sum()), dtype=np.int64) - np.repeat(off, deg)
+        take = np.repeat(ptr[mb].astype(np.int64), deg) + slot
+        row = np.repeat(np.arange(mb.size, dtype=np.int64), deg)
+        idx_out[row, slot] = cols[take]
+        val_out[row, slot] = vals[take]
+
+    return _stack_bins(cnt, K_loc, fill, n_bins, k_multiple, p, caps)

@@ -51,11 +51,11 @@ def _plan_kw(store):
             else dict(fill=store.worst_fill))
 
 
-def _port_store_bytes(r, q, cfg):
-    """Ground truth at p = 1: the port's store at that rung, its schedule's
+def _port_store_bytes(r, q, cfg, p=1):
+    """Ground truth: the port's store at that rung, its schedule's
     predicted streamed bytes per iteration."""
-    store = p_store.RatingStore(r, q=q, k_multiple=cfg.k_multiple, n_bins=cfg.n_bins)
-    plan = p_part.plan_for(SPEC.m, SPEC.n, r.nnz, SPEC.f, p=1, q=q, n_data=2,
+    store = p_store.RatingStore(r, q=q, p=p, k_multiple=cfg.k_multiple, n_bins=cfg.n_bins)
+    plan = p_part.plan_for(SPEC.m, SPEC.n, r.nnz, SPEC.f, p=p, q=q, n_data=2,
                            hbm_bytes=HBM, **_plan_kw(store))
     stats = predicted_stream_stats(store, build_schedule(plan, SPEC.m, SPEC.n, n_data=2),
                                    SPEC.f)
@@ -82,8 +82,7 @@ def _drop_backend(key):
 def test_analytic_pricing_matches_reference_per_rung(r, p):
     """Every rung's price equals the reference's (every field, the per-bin
     pairs included), and the real store's predicted bytes: the port's
-    store at p = 1, the reference's stacked-bin store at p = 2 (the port
-    has no p > 1 store until the mesh slice)."""
+    store's, which at p = 2 (stacked bins) also equal the reference's."""
     ladder = p_at.als_ladder(8)
     assert [c.to_obj() for c in ladder] == [c.to_obj() for c in r_at.als_ladder(8)]
     deg_t = p_at._batch_item_degrees(r, 4)
@@ -93,8 +92,10 @@ def test_analytic_pricing_matches_reference_per_rung(r, p):
         ref = r_at.predicted_als_bytes(r, 4, r_at.LayoutConfig(**cfg.to_obj()), p=p, f=SPEC.f)
         assert mine == ref, cfg
         assert p_at.predicted_als_bytes(r, 4, cfg, p=p, f=SPEC.f, deg_t=deg_t) == mine
-        truth = _port_store_bytes(r, 4, cfg) if p == 1 else _ref_store_bytes(r, 4, cfg, p)
+        truth = _port_store_bytes(r, 4, cfg, p)
         assert mine["bytes"] == truth, cfg
+        if p > 1:
+            assert truth == _ref_store_bytes(r, 4, cfg, p), cfg
     if p > 1:
         assert p_at._model_shard_k(r, p, 8) == r_at._model_shard_k(r, p, 8)
 

@@ -30,6 +30,7 @@ from repro_torch.core import als as p_als  # noqa: E402
 from repro_torch.core import partition as p_part  # noqa: E402
 from repro_torch.data.prefetch import Prefetcher  # noqa: E402
 from repro_torch.kernels import budgets  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.obs import MetricsRegistry, Tracer  # noqa: E402
 from repro_torch.outofcore import schedule as p_sched  # noqa: E402
 from repro_torch.outofcore import store as p_store  # noqa: E402
@@ -170,17 +171,22 @@ def test_rating_store_matches_reference(problem, q, n_bins):
 
 
 def test_store_auto_bins_and_the_mesh_guard(problem):
-    """``n_bins="auto"`` builds the reference's autotuned store; ``p > 1``
-    still raises (the mesh path, Queue 1 item 9)."""
+    """``n_bins="auto"`` builds the reference's autotuned store, at p = 1
+    and p = 2; a p = 1 store refuses to cut mesh slices, and a p that does
+    not divide the items raises."""
     r, _, _ = problem
-    a = r_store.RatingStore(r, q=4, n_bins="auto")
-    b = p_store.RatingStore(r, q=4, n_bins="auto")
-    assert (a.n_bins, a.bin_fill_pairs(), a.worst_fill) == \
-        (b.n_bins, b.bin_fill_pairs(), b.worst_fill)
-    assert b.tune["config"] == a.tune["config"] and b.tune["score"] == a.tune["score"]
-    _assert_binned_equal(a.r_binned, b.r_binned)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        p_store.RatingStore(r, q=4, p=2)
+    for p in (1, 2):
+        a = r_store.RatingStore(r, q=4, p=p, n_bins="auto")
+        b = p_store.RatingStore(r, q=4, p=p, n_bins="auto")
+        assert (a.n_bins, a.bin_fill_pairs(), a.worst_fill) == \
+            (b.n_bins, b.bin_fill_pairs(), b.worst_fill)
+        assert b.tune["config"] == a.tune["config"] and b.tune["score"] == a.tune["score"]
+    _assert_binned_equal(r_store.RatingStore(r, q=4, n_bins="auto").r_binned,
+                         p_store.RatingStore(r, q=4, n_bins="auto").r_binned)
+    with pytest.raises(ValueError, match="p=1"):
+        p_store.RatingStore(r, q=4).x_slice_mesh_triplet(0, 8)
+    with pytest.raises(ValueError, match="not divisible"):
+        p_store.RatingStore(r, q=4, p=3)
 
 
 def _plan(mod, store, r, q, n_data, n_bins):
@@ -382,6 +388,28 @@ def _records(tel, rename=False):
     return out
 
 
+def _consumer_floor(store, sched):
+    """The least the metered peak can be: what the consumer alone holds
+    while it solves a wave — in the solve-X half the fixed Theta, the
+    solve scratch and one batch's share of the wave; in the
+    accumulate-Theta half the accumulators and one batch's payload."""
+    f = SPEC.f
+    st = p_sched.predicted_stream_stats(store, sched, f)
+    share = [min(b // len(w.batches) for b, w in zip(st[k], sched.waves))
+             for k in ("x_bytes", "t_bytes")]
+    x_half = store.n * f * 4 + sched.waves[0].rows * (f * f + 2 * f) * 4 // sched.n_data
+    return max(x_half + share[0], store.n * (f * f + f + 1) * 4 + share[1])
+
+
+def _assert_peak(peak, tel, store, sched):
+    """The metered peak depends on how far the prefetch worker, which
+    registers its wave buffers on its own thread, ran ahead of the
+    consumer, in both packages; it is held as the reference's tests hold
+    it (tests/test_outofcore.py:156, :185), not compared across runs."""
+    assert _consumer_floor(store, sched) <= peak <= tel.capacity_bytes, \
+        (peak, tel.capacity_bytes)
+
+
 @pytest.mark.parametrize("mode", ["ref", "kernel"])
 @pytest.mark.parametrize("case", list(CASES))
 def test_streaming_matches_reference(problem, init, ref_runs, case, mode):
@@ -400,15 +428,20 @@ def test_streaming_matches_reference(problem, init, ref_runs, case, mode):
     for a, b in zip(hist, rhist):
         assert abs(a["train_rmse"] - b["train_rmse"]) < RMSE_TOL
         assert abs(a["test_rmse"] - b["test_rmse"]) < RMSE_TOL
-        assert (a["waves_run"], a["peak_bytes"]) == (b["waves_run"], b["peak_bytes"])
+        assert a["waves_run"] == b["waves_run"]
+        _assert_peak(a["peak_bytes"], tel, store, sched)
     # the ledger: the reference's validator accepts it, every record holds,
-    # and every exact record (and every fill) equals the reference's
+    # and every exact record (and every fill) equals the reference's; the
+    # metered peaks on their predicted side
     assert r_validate(tel.ledger)["ok"] and all(x["ok"] for x in tel.ledger["records"])
     mine, ref = _records(tel, rename=True), _records(rtel)
     assert set(mine) == set(ref) - {"vmem/fused_herm_pallas", "vmem/batch_solve_pallas"} \
         | {"vmem/fused_herm", "vmem/batch_solve"}
     for name, rec in ref.items():
-        if rec["check"] == "exact" or name.startswith(("fill", "worst", "peak", "modeled")):
+        if name.startswith(("peak", "modeled")):
+            assert mine[name]["predicted"] == rec["predicted"], name
+            _assert_peak(mine[name]["measured"], tel, store, sched)
+        elif rec["check"] == "exact" or name.startswith(("fill", "worst")):
             assert (mine[name]["predicted"], mine[name]["measured"]) == \
                 (rec["predicted"], rec["measured"]), name
     for kernel in ("fused_herm", "batch_solve"):
@@ -416,8 +449,9 @@ def test_streaming_matches_reference(problem, init, ref_runs, case, mode):
         assert rec["measured"] == budgets.footprint_bytes(kernel, f=SPEC.f)
         assert rec["context"] == {"mode": mode}
     for key in ("waves_run", "batches_loaded", "bytes_streamed", "padded_slots",
-                "nnz_streamed", "capacity_bytes", "peak_bytes"):
+                "nnz_streamed", "capacity_bytes"):
         assert getattr(tel, key) == getattr(rtel, key), key
+    _assert_peak(tel.peak_bytes, tel, store, sched)
     assert set(tel.ledger["run"]) == set(rtel.ledger["run"]) | {"device"}
     # the span contract: one solve span per wave consumed
     assert len(tr.spans(cat="solve")) == tel.waves_run == 2 * len(sched.waves) * 2
@@ -517,8 +551,11 @@ def test_solve_accumulated_in_place_equals_the_copying_solve():
 def test_driver_rejects_what_is_not_ported(problem):
     r, _, _ = problem
     store, sched = _setup("port", r, "uniform")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        p_run(store, sched, _port_cfg(), mesh=object())
+    mesh = make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4)
+    with pytest.raises(ValueError, match="mesh p=2"):     # a p = 1 schedule on p = 2
+        p_run(store, sched, _port_cfg(), mesh=mesh)
+    with pytest.raises(ValueError, match="pass mesh="):
+        p_run(p_store.RatingStore(r, q=4, p=2, n_bins=4), sched, _port_cfg())
     for q in (3, 5):
         with pytest.raises(ValueError):
             p_run(p_store.RatingStore(r, q=q), sched, _port_cfg())

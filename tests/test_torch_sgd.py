@@ -151,6 +151,71 @@ def test_build_plan_lists_each_live_entry_once(p, collide):
     assert plan.nbytes == sum(t.numel() * 4 for t in plan[:7])
 
 
+def _plan_int64(idx, val, cnt, p):
+    """The slot plan as ``build_plan`` computed it before its entry arrays
+    went to int32: int64 (row, slot) pairs from a mask, a stable sort on
+    slot * n_items + item, groups from two comparisons.  The oracle the
+    leaner build must equal array for array."""
+    R, K = idx.shape
+    live = torch.arange(K)[None, :] < cnt[:, None].long()
+    r_, k_ = live.nonzero(as_tuple=True)
+    items = idx[r_, k_].long()
+    n_items = int(items.max()) + 1 if items.numel() else 1
+    order = torch.sort(k_ * n_items + items, stable=True).indices
+    ks, items = k_[order], items[order]
+    rows, vals, L = r_[order].int(), val[r_, k_][order].float(), int(ks.numel())
+    new = torch.ones(L, dtype=torch.bool)
+    new[1:] = (ks[1:] != ks[:-1]) | (items[1:] != items[:-1])
+    g_start = new.nonzero().squeeze(1)
+    g_len = torch.diff(g_start, append=torch.tensor([L]))
+    g_item, g_k = items[g_start], ks[g_start]
+    slots, per_slot = torch.unique_consecutive(g_k, return_counts=True)
+    S = int(slots.numel())
+    g_slot = torch.repeat_interleave(torch.arange(S), per_slot)
+    parts = (g_len + p - 1) // p
+    split = parts > 1
+    sp = torch.where(split, parts, 0)
+    ex = torch.cumsum(sp, 0) - sp
+    base = ex - ex[(torch.cumsum(per_slot, 0) - per_slot)][g_slot]
+    n_scratch = int(torch.zeros(S, dtype=torch.long).index_add_(0, g_slot, sp).max()) if S else 0
+    u_g = torch.repeat_interleave(torch.arange(g_start.numel()), parts)
+    u_part = torch.arange(u_g.numel()) - (torch.cumsum(parts, 0) - parts)[u_g]
+    u_len = torch.clamp(g_len[u_g] - u_part * p, max=p)
+    units = torch.stack([g_item[u_g], g_start[u_g] + u_part * p, u_len,
+                         torch.where(split[u_g], base[u_g] + u_part, -1)], 1)
+    u_order = torch.sort(g_slot[u_g] * (p + 1) + (p - u_len), stable=True).indices
+    zero = torch.zeros(1, dtype=torch.long)
+    unit_offs = torch.cat([zero, torch.cumsum(
+        torch.zeros(S, dtype=torch.long).index_add_(0, g_slot, parts), 0)])
+    sg = split.nonzero().squeeze(1)
+    splits = torch.stack([g_item[sg], base[sg], parts[sg], g_len[sg]], 1)
+    split_offs = torch.cat([zero, torch.cumsum(torch.zeros(S, dtype=torch.long).index_add_(
+        0, g_slot[sg], torch.ones_like(sg)), 0)])
+    return (rows, vals, units[u_order].int(), unit_offs.int(), splits.int(),
+            split_offs.int(), slots.int(), n_scratch)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_build_plan_equals_its_int64_form(seed):
+    """The plan's int32 build gives the int64 build's arrays bit for bit:
+    ragged rows, empty rows, rows whose cnt lies outside 0..K, heavy
+    collisions split at every p."""
+    g = torch.Generator().manual_seed(seed)
+    for _ in range(20):
+        R, K = int(torch.randint(0, 300, (1,), generator=g)), int(torch.randint(1, 48, (1,), generator=g))
+        n_items = int(torch.randint(1, 60, (1,), generator=g))
+        idx = torch.randint(0, n_items, (R, K), generator=g, dtype=torch.int32)
+        val = torch.rand(R, K, generator=g)
+        cnt = torch.randint(-2, K + 3, (R,), generator=g, dtype=torch.int32)
+        for p in (1, 3, port_sgd.P_SPLIT):
+            plan = port_sgd.build_plan(idx, val, cnt, p=p)
+            for got, want in zip(plan, _plan_int64(idx, val, cnt, p)):
+                if isinstance(want, torch.Tensor):
+                    assert got.dtype == want.dtype and torch.equal(got, want)
+                else:
+                    assert got == want
+
+
 @pytest.mark.parametrize("layout", ["uniform", "per_tile_k_sorted"])
 def test_set_plans_use_global_ids(problem, layout):
     kw = {} if layout == "uniform" else dict(per_tile_k=True, degree_sort=True)

@@ -32,6 +32,7 @@ from repro.sgd.hybrid import run_streaming_hybrid as r_run_hybrid  # noqa: E402
 from repro.sparse import synth  # noqa: E402
 from repro_torch.core import als as p_als  # noqa: E402
 from repro_torch.core.partition import plan_for  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.obs import MetricsRegistry, Tracer  # noqa: E402
 from repro_torch.outofcore import (FactorStore, RatingStore,  # noqa: E402
                                    SimulatedFailure, TileStore, build_schedule,
@@ -100,6 +101,25 @@ def _records(tel):
     return {rec["name"]: rec for rec in tel.ledger["records"]}
 
 
+#: ledger records whose measured side is the metered peak
+PEAK_RECORDS = ("peak_device_bytes", "modeled_peak_bytes")
+
+
+def _consumer_floor(grid):
+    """The least the metered peak can be on a uniform grid: what the
+    consumer alone holds during a wave — one worker's tile triplet and the
+    fetched and updated factor blocks (``fac_in``, ``fac_out``)."""
+    return grid.mb * grid.K * 8 + grid.mb * 4 + 2 * (grid.mb + grid.nb) * SPEC.f * 4
+
+
+def _assert_peak(peak, tel, grid):
+    """The metered peak depends on how far the prefetch worker, which
+    registers its wave buffers on its own thread, ran ahead of the
+    consumer, in both packages; it is held as the reference's tests hold
+    it (tests/test_outofcore.py:156, :294), not compared across runs."""
+    assert _consumer_floor(grid) <= peak <= tel.capacity_bytes, (peak, tel.capacity_bytes)
+
+
 # ---------------------------------------------------------------------------
 # the driver against the reference's
 # ---------------------------------------------------------------------------
@@ -120,22 +140,29 @@ def test_streaming_sgd_matches_reference(problem, ref_runs, ref_order, n_workers
     assert len(hist) == len(rhist) == 2
     for a, b in zip(hist, rhist):
         assert abs(a["test_rmse"] - b["test_rmse"]) < RMSE_TOL
-        assert (a["epoch"], a["lr"], a["waves_run"], a["peak_bytes"]) == \
-            (b["epoch"], b["lr"], b["waves_run"], b["peak_bytes"])
+        assert (a["epoch"], a["lr"], a["waves_run"]) == (b["epoch"], b["lr"], b["waves_run"])
+        _assert_peak(a["peak_bytes"], tel, grid)
     # the ledger: the reference's validator accepts it, every record holds,
     # and every record but the reference's VMEM budget equals the reference's
+    # (the metered peaks on their predicted side)
     assert r_validate(tel.ledger)["ok"] and all(x["ok"] for x in tel.ledger["records"])
     mine, ref = _records(tel), _records(rtel)
     assert set(mine) == set(ref) - {"vmem/sgd_tile_pallas"}
     for name, rec in mine.items():
-        assert (rec["predicted"], rec["measured"], rec["check"]) == \
-            (ref[name]["predicted"], ref[name]["measured"], ref[name]["check"]), name
+        if name in PEAK_RECORDS:
+            assert (rec["predicted"], rec["check"]) == \
+                (ref[name]["predicted"], ref[name]["check"]), name
+            _assert_peak(rec["measured"], tel, grid)
+        else:
+            assert (rec["predicted"], rec["measured"], rec["check"]) == \
+                (ref[name]["predicted"], ref[name]["measured"], ref[name]["check"]), name
     assert mine["bytes_streamed"]["check"] == "exact"
     assert set(tel.ledger["run"]) == set(rtel.ledger["run"]) | {"device"}
     assert tel.ledger["run"]["device"] == "cpu" and tel.ledger["run"]["mode"] == mode
     for key in ("waves_run", "batches_loaded", "bytes_streamed", "padded_slots",
-                "nnz_streamed", "capacity_bytes", "peak_bytes"):
+                "nnz_streamed", "capacity_bytes"):
         assert getattr(tel, key) == getattr(rtel, key), key
+    _assert_peak(tel.peak_bytes, tel, grid)
     # the span contract: one solve span per wave consumed
     assert len(tr.spans(cat="solve")) == tel.waves_run == 2 * sched.waves_per_epoch
     assert {"driver", "epoch", "solve", "prefetch", "prefetch_load"} <= set(tel.phase_seconds)
@@ -216,8 +243,12 @@ def test_streaming_sgd_per_tile_k_equals_uniform(problem, alpha_user, mode):
 def test_driver_rejects_what_does_not_fit(problem):
     r, _ = problem
     grid, tiles, sched = _tiles(r)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        sgd_driver.run_streaming_sgd(tiles, sched, _cfg("ref"), mesh=object())
+    with pytest.raises(ValueError, match="workers"):       # 2 workers, 1 cell
+        sgd_driver.run_streaming_sgd(tiles, sched, _cfg("ref"),
+                                     mesh=make_mesh((1, 1), ("data", "model"), ["cpu"]))
+    with pytest.raises(ValueError, match="data axis"):
+        sgd_driver.run_streaming_sgd(tiles, sched, _cfg("ref"),
+                                     mesh=make_mesh((2,), ("model",), ["cpu"] * 2))
     with pytest.raises(ValueError, match="different grids"):
         sgd_driver.run_streaming_sgd(TileStore(block_ell(r, g=2)), sched, _cfg("ref"))
     with pytest.raises(ValueError, match="f="):
@@ -313,5 +344,6 @@ def test_streaming_hybrid_matches_reference(problem, ref_order, monkeypatch, tmp
     for a, b in zip(hist, rhist):
         assert abs(a["test_rmse"] - b["test_rmse"]) < 1e-4
     for key in ("waves_run", "batches_loaded", "bytes_streamed", "padded_slots",
-                "nnz_streamed", "capacity_bytes", "peak_bytes"):
+                "nnz_streamed", "capacity_bytes"):
         assert getattr(tel, key) == getattr(rtel, key), key
+    _assert_peak(tel.peak_bytes, tel, grid)
