@@ -109,17 +109,39 @@ Phases, in order; any failure stops the run with a non-zero exit:
    bytes, the partials brought to the host a wave, the stall;
    11c. streaming mesh SGD at quarter-Netflix on phase 8's grid, 4 tiles
    a wave, one to each cell of data=2 x model=2, 3 epochs: factors within
-   1e-4 of phase 8's, ms per epoch.
+   1e-4 of phase 8's, ms per epoch;
+12. the user entry points on the card, each ``main(argv)`` in-process in a
+   temporary working directory with its own ``--ckpt``, every kernel's
+   count set to 0 before each call and read after it, the path's kernels
+   required: ``examples_torch/quickstart.py`` (the relative criteria), and
+   once as a script; ``examples_torch/train_als_netflix.py`` at its default
+   size (netflix-scaled, 122880 x 17770, 6 M ratings, f=32): in-core ALS
+   for 2 iterations and a rerun that resumes to 3, SGD for 3 epochs, the
+   hybrid (2 + 3), out-of-core ALS under a 256 MiB budget (waves >= 2)
+   with an all-ok ``--ledger`` and a valid ``--trace``; at ``--small`` the
+   streamed SGD and hybrid, ``--autotune`` twice (a cache miss, then a
+   hit), and ``--mesh 2,2 --mesh-device cuda:0`` for ALS and SGD; the
+   script's own launch line must match the wrappers' counts; both ALS
+   kernels at the in-core run's shapes (R, and R^T with its heavy items
+   split) and the SGD kernel at the SGD run's grid, from their
+   checkpoints, against the plain versions; then ``benchmarks_torch/
+   run.py`` once per module at its default size (``--autotune``), every
+   row parsed, both JSON files written, and ``python -m
+   repro_torch.obs.regress --history`` accepting the history file.
 
 The second-to-last line of output is a JSON ``kernels`` record (with each
-kernel's ``launches_mesh``, its launches in phase 11's runs, and for the
+kernel's ``launches_mesh``, its launches in phase 11's runs,
+``launches_entry_points``, its launches in phase 12's runs, and for the
 ALS kernels ``max_abs_err_mesh``, their error against the plain versions
-at 11b's shapes); the last line is ``{"ok": true, "device": {...}}``.
+at 11b's shapes, and ``max_abs_err_entry_points`` for the three training
+kernels at phase 12's shapes); the last line is ``{"ok": true, "device":
+{...}}``.
 Without a GPU, or without the repository's ``src/`` beside this file, it
 exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import io
 import json
 import resource
 import subprocess
@@ -185,6 +207,324 @@ def cuda_ms(torch, fn, reps: int = 3) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+class _Tee(io.TextIOBase):
+    """Standard output that also keeps what passes through it: the output
+    of an entry point run in-process."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, s):
+        self.out.write(s)
+        self.parts.append(s)
+        return len(s)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def _load_script(rel: str):
+    """A script of the repository (``examples_torch/...``) as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("smoke_" + Path(rel).stem, ROOT / rel)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+#: each bench module's row-name prefixes, and the kernels its run must launch
+BENCH_ROWS = {
+    "convergence": (("fig6_convergence_netflix", "fig6_convergence_yahoomusic"),
+                    ("fused_herm", "batch_solve")),
+    "register_ablation": (("fig7_register_fused", "fig7_register_hbm_binned"),
+                          ("fused_herm", "herm_hbm_accum")),
+    "texture": (("fig8_texture_fused_gather", "fig8_texture_materialized"), ("fused_herm",)),
+    "scaling": (("fig9_scaling_1dev_measured",) + tuple(
+        f"fig9_scaling_modeled_p{p}" for p in (1, 2, 4, 8, 16)), ("fused_herm", "batch_solve")),
+    "huge": (tuple(f"fig11_huge_{n}" for n in ("netflix", "yahoomusic", "hugewiki", "sparkals",
+                                               "factorbird", "facebook", "cumf_max"))
+             + ("outofcore_q4_w2", "outofcore_q8_w4", "outofcore_q4_w2_binned",
+                "outofcore_binned_fill_win", "outofcore_q4_w2_autotuned",
+                "outofcore_mesh_p2_q4_w2_binned"), ("fused_herm", "batch_solve")),
+    "reduction": (tuple(f"fig5_reduction_p16x{s}_{k}" for s in (2, 4)
+                        for k in ("flat", "two_phase")), ()),
+    "kernels": (("kern_fused_AB_one_pass", "kern_paper_two_pass", "kern_batch_solve"),
+                ("fused_herm", "batch_solve")),
+    "sgd": (tuple(f"sgd_vs_als_{k}" for k in ("als", "sgd", "hybrid", "sgd_stream",
+                                               "sgd_stream_skew", "sgd_stream_binned"))
+            + ("sgd_binned_fill_win", "sgd_vs_als_sgd_stream_mesh"),
+            ("fused_herm", "batch_solve", "sgd_tile")),
+}
+
+
+def entry_points(torch, wrappers: dict, dev) -> dict:
+    """Phase 12: the user entry points on the card.
+
+    Each script's ``main(argv)`` runs in-process with the working directory
+    a fresh temporary one and its own ``--ckpt`` there; every kernel
+    wrapper's count is set to 0 just before each call and read just after,
+    and the path's kernels must have launched.  The example's own count
+    line must agree.  After the in-core ALS and SGD runs at the default
+    size, their kernels are held against the plain versions at the shapes
+    those runs gave them, from the runs' checkpoints.  Returns the launches
+    summed over the runs, each run's seconds, launches and allocator peak,
+    and the kernels' largest errors.
+    """
+    import contextlib
+    import importlib
+    import os
+    import re
+
+    import numpy as np
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import als
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import sgd_update
+    from repro_torch.kernels.batch_solve import batch_solve_cuda, batch_solve_plain
+    from repro_torch.kernels.hermitian import fused_herm_cuda, fused_herm_plain
+    from repro_torch.obs import load_and_validate, validate_ledger
+    from repro_torch.sgd import blocking
+    from repro_torch.sgd import train as sgd
+    from repro_torch.sparse import synth
+
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))           # benchmarks_torch
+    train = _load_script("examples_torch/train_als_netflix.py")
+    quick = _load_script("examples_torch/quickstart.py")
+    bench = importlib.import_module("benchmarks_torch.run")
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_entry_"))
+    total = dict.fromkeys(wrappers, 0)
+    runs, err = [], {"herm": 0.0, "solve": 0.0, "sgd": 0.0}
+    als_path, sgd_path = ("fused_herm", "batch_solve"), ("sgd_tile",)
+    log(f"phase 12: the entry points on the card, in {work}; host RSS {rss_now() / 2**30:.2f} GiB")
+
+    def call(label, fn, argv, path):
+        """``fn(argv)`` in ``work``, its output kept; the launches, seconds
+        and allocator peak of the call."""
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tee = _Tee(sys.stdout)
+        cwd = os.getcwd()
+        os.chdir(work)
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(tee):
+                ret = fn(argv)
+            torch.cuda.synchronize()
+        finally:
+            os.chdir(cwd)
+        secs = time.perf_counter() - t0
+        counts = {k: w.launches for k, w in wrappers.items()}
+        peak = torch.cuda.max_memory_allocated() - resident
+        log(f"phase 12 {label}: {secs:.2f} s, launches {counts}, allocator peak "
+            f"{peak / 2**20:.1f} MiB over {resident / 2**20:.1f} MiB resident, host peak RSS "
+            f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f} GiB")
+        for k in path:
+            check(counts[k] > 0, f"phase 12 {label}: kernel {k} was never launched")
+        for k, v in counts.items():
+            total[k] += v
+        runs.append({"run": label, "seconds": secs, "launches": counts, "peak_bytes": peak})
+        return tee.text(), ret
+
+    def example(label, argv, path):
+        out, _ = call(label, train.main, ["--device", "cuda", *argv], path)
+        line = [ln for ln in out.splitlines() if ln.startswith("kernel launches: ")]
+        check(len(line) == 1, f"phase 12 {label}: no kernel launch line")
+        printed = json.loads(line[0].removeprefix("kernel launches: "))
+        check(printed == runs[-1]["launches"],
+              f"phase 12 {label}: the script counted {printed}, the wrappers {runs[-1]['launches']}")
+        rmses = [float(v) for v in re.findall(r"test_rmse=([0-9.]+|nan|inf)", out)]
+        check(bool(rmses) and all(np.isfinite(rmses)) and rmses[-1] < 1.2,
+              f"phase 12 {label}: test RMSE {rmses}")
+        return out
+
+    def ck(name):
+        return str(work / name)
+
+    def restore(directory, rows_x, rows_t, f):
+        state, step = CheckpointManager(directory).restore_or_init(
+            {"x": torch.zeros((rows_x, f), device=dev),
+             "theta": torch.zeros((rows_t, f), device=dev)}, lambda: None)
+        check(step > 0, f"no checkpoint under {directory}")
+        return state
+
+    # quickstart, in-process and as a script
+    _, hist = call("quickstart", quick.main, ["--device", "cuda"], als_path)
+    rm = [h["test_rmse"] for h in hist]
+    check(quick.converged(rm), f"quickstart failed the relative criteria: {rm}")
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    sub = subprocess.run([sys.executable, str(ROOT / "examples_torch" / "quickstart.py")],
+                         cwd=work, env=env, capture_output=True, text=True, timeout=600)
+    log(f"phase 12 quickstart as a script: exit {sub.returncode} in "
+        f"{time.perf_counter() - t0:.2f} s; {sub.stdout.strip().splitlines()[-2:]}")
+    check(sub.returncode == 0 and "converged." in sub.stdout,
+          f"python3 examples_torch/quickstart.py failed: {sub.stdout[-2000:]} {sub.stderr[-2000:]}")
+
+    # train_als_netflix at its default size (netflix-scaled, f=32): in-core
+    # ALS, kept ratings for the kernel checks below
+    kept = {}
+    real = synth.make_synthetic_ratings
+
+    def keep(*a, **k):
+        kept["ratings"] = real(*a, **k)
+        return kept["ratings"]
+
+    synth.make_synthetic_ratings = keep
+    try:
+        example("train_als_netflix ALS, 2 iterations", ["--iters", "2", "--ckpt", ck("als")],
+                als_path)
+    finally:
+        synth.make_synthetic_ratings = real
+
+    # both ALS kernels at the shapes that run gave them (R, then R^T with
+    # its heavy items split, in the example's 16384-row blocks), at its
+    # checkpointed factors
+    r, rt, _, _ = kept.pop("ratings")
+    f, lam, rows = 32, 0.05, 16_384
+    st = restore(ck("als"), r.m, rt.m, f)
+    for side, fixed, ell in (("R", st["theta"], r), ("R^T", st["x"], rt)):
+        idx, val, cnt = als.ell_triplet(ell, dev)
+        diag = torch.where(cnt > 0, lam * cnt.float(), torch.ones_like(cnt, dtype=torch.float32))
+        K = idx.shape[1]
+        step = max(1, PLAIN_CHUNK_ELEMS // (K * f))
+        a_max = 0.0
+        for lo in range(0, ell.m, rows):
+            blk = slice(lo, min(lo + rows, ell.m))
+            A, B = fused_herm_cuda(fixed, idx[blk], val[blk], cnt[blk], diag[blk])
+            a_max = max(a_max, A.abs().max().item())
+            for c0 in range(blk.start, blk.stop, step):
+                sl = slice(c0, min(c0 + step, blk.stop))
+                A0, B0 = fused_herm_plain(fixed, idx[sl], val[sl], cnt[sl], diag[sl])
+                a_, b_ = A[sl.start - lo:sl.stop - lo], B[sl.start - lo:sl.stop - lo]
+                check(torch.allclose(a_, A0, atol=HERM_ATOL, rtol=HERM_RTOL)
+                      and torch.allclose(b_, B0, atol=HERM_ATOL, rtol=HERM_RTOL),
+                      f"fused_herm disagrees with its plain version on the example's {side}")
+                err["herm"] = max(err["herm"], (a_ - A0).abs().max().item(),
+                                  (b_ - B0).abs().max().item())
+                del A0, B0
+            x1, x0 = batch_solve_cuda(A, B), batch_solve_plain(A, B)
+            check(torch.allclose(x1, x0, atol=SOLVE_TOL, rtol=SOLVE_TOL),
+                  f"batch_solve disagrees with its plain version on the example's {side}")
+            err["solve"] = max(err["solve"], (x1 - x0).abs().max().item())
+            del A, B, x1, x0
+        log(f"  the example's {side}: {ell.m} rows, K={K}, {ell.nnz} ratings, max|A| "
+            f"{a_max:.4g}: max|dA,dB| {err['herm']:.3g}, max|dx| {err['solve']:.3g} so far")
+        del idx, val, cnt, diag
+    del st, rt
+
+    out = example("train_als_netflix ALS resumed to 3 iterations",
+                  ["--iters", "3", "--ckpt", ck("als")], als_path)
+    check("resuming from checkpoint at iteration 2" in out
+          and re.findall(r"^iter +(\d+) ", out, re.M) == ["3"],
+          "the in-core ALS rerun did not resume from iteration 2")
+
+    example("train_als_netflix SGD, 3 epochs", ["--solver", "sgd", "--epochs", "3",
+                                                "--ckpt", ck("sgd")], sgd_path)
+    # the SGD kernel at the run's grid, from its final factors: each set's
+    # planned in-place call against the plain version and the planned plain one
+    grid = blocking.block_ell(r, g=4)
+    g, mb, nb, K = grid.g, grid.mb, grid.nb, grid.K
+    st = restore(str(Path(ck("sgd")) / "sgd"), g * mb, g * nb, f)
+    cfg = sgd.SgdConfig(f=f, lam=lam, lr=0.15, epochs=3, schedule="cosine")
+    lr0 = sgd.epoch_lr(cfg, 0)
+    idx, val, cnt = gt = sgd.grid_triplet(grid, dev)
+    plans = sgd.build_set_plans(gt, grid)
+    ar = torch.arange(g, device=dev)
+    offs = (torch.arange(g, dtype=torch.int32, device=dev) * nb)[:, None, None]
+    tb = st["theta"].reshape(g, nb, f)
+    for s_, pl in enumerate(plans):
+        j = (ar + s_) % g
+        x0, t0_ = sgd_update.sgd_tile_plain(
+            st["x"], tb[j].reshape(g * nb, f), (idx[ar, j] + offs).reshape(g * mb, K),
+            val[ar, j].reshape(g * mb, K), cnt[ar, j].reshape(g * mb), lr0, lam)
+        x1, t1 = st["x"].clone(), st["theta"].clone()
+        sgd_update.sgd_tile_planned_(x1, t1, pl, lr0, lam)
+        t1_set = t1.reshape(g, nb, f)[j].reshape(g * nb, f)
+        xp, tp = kref.sgd_tile_planned_plain(st["x"], st["theta"], pl, lr0, lam)
+        for a_, b_ in ((x1, x0), (t1_set, t0_), (x1, xp), (t1, tp)):
+            check(torch.allclose(a_, b_, atol=SGD_TOL, rtol=SGD_TOL),
+                  f"sgd_tile disagrees with its plain versions on the example's set {s_}")
+            err["sgd"] = max(err["sgd"], (a_ - b_).abs().max().item())
+        del x0, t0_, x1, t1, t1_set, xp, tp
+    log(f"  the example's SGD grid (g={g}, mb={mb}, nb={nb}, K={K}, {grid.nnz} ratings): "
+        f"planned sgd_tile vs plain, max |d| {err['sgd']:.3g}")
+    del st, grid, gt, idx, val, cnt, plans, tb, r
+
+    example("train_als_netflix hybrid, 2 + 3", ["--solver", "hybrid", "--iters", "2",
+                                                 "--epochs", "3", "--ckpt", ck("hybrid")],
+            als_path + sgd_path)
+    ledger, trace = work / "ledger.json", work / "trace.json"
+    out = example("train_als_netflix out-of-core ALS, 2 iterations",
+                  ["--out-of-core", "--device-mb", "256", "--iters", "2", "--ledger",
+                   str(ledger), "--trace", str(trace), "--ckpt", ck("ooc")], als_path)
+    waves = int(re.search(r"^schedule: waves=(\d+)", out, re.M).group(1))
+    check(waves >= 2, f"the out-of-core plan has {waves} waves")
+    led = json.loads(ledger.read_text())
+    check(validate_ledger(led)["ok"] and all(rec["ok"] for rec in led["records"]),
+          "the out-of-core example's ledger is not all ok")
+    load_and_validate(str(trace))
+
+    # --small: the streamed SGD and hybrid, the autotuner, the mesh
+    example("train_als_netflix --small out-of-core SGD",
+            ["--small", "--out-of-core", "--solver", "sgd", "--epochs", "3", "--ckpt", ck("s1")],
+            sgd_path)
+    example("train_als_netflix --small out-of-core hybrid",
+            ["--small", "--out-of-core", "--solver", "hybrid", "--iters", "2", "--epochs", "3",
+             "--ckpt", ck("s2")], als_path + sgd_path)
+    out = example("train_als_netflix --small out-of-core autotune",
+                  ["--small", "--out-of-core", "--autotune", "--iters", "2", "--ckpt", ck("s3")],
+                  als_path)
+    cache = json.loads((work / "s3" / "tune_cache.json").read_text())
+    check("(cache_miss)" in out and cache.get("schema") == "repro.core/tunecache-v1",
+          f"the autotune run wrote no tune cache: {cache}")
+    out = example("train_als_netflix --small out-of-core autotune again",
+                  ["--small", "--out-of-core", "--autotune", "--iters", "3", "--ckpt", ck("s3")],
+                  als_path)
+    check("(cache_hit)" in out, "the second autotune run missed its cache")
+    for solver, n in (("als", ["--iters", "2"]), ("sgd", ["--epochs", "3"])):
+        out = example(f"train_als_netflix --small mesh 2,2 on cuda:0 {solver}",
+                      ["--small", "--out-of-core", "--mesh", "2,2", "--mesh-device", "cuda:0",
+                       "--solver", solver, *n, "--ckpt", ck("m" + solver)],
+                      als_path if solver == "als" else sgd_path)
+        check("on 1 device(s) (cuda:0)" in out, f"the {solver} mesh is not on cuda:0")
+
+    # benchmarks_torch/run.py, every module at its default size, one call each
+    history = work / "history.jsonl"
+    for name, _ in bench.MODULES:
+        names, path = BENCH_ROWS[name]
+        out, _ = call(f"bench {name}", bench.main,
+                      ["--only", name, "--autotune", "--history", str(history),
+                       "--device", "cuda"], path)
+        rows = []
+        for line in out.splitlines():
+            if line and not line.startswith("#") and line != "name,us_per_call,derived":
+                row, us, _ = line.split(",", 2)
+                check(float(us) >= 0.0, f"bench {name}: row {line!r}")
+                rows.append(row)
+        check([n for n in rows if n != "outofcore_ledger"] == list(names),
+              f"bench {name}: rows {rows}, expected {names}")
+    for fname in ("BENCH_torch_outofcore.json", "BENCH_torch_sgd.json"):
+        check(len(json.loads((work / fname).read_text())) > 0, f"{fname} is empty")
+    sub = subprocess.run([sys.executable, "-m", "repro_torch.obs.regress", "--history",
+                          str(history)], env=env, capture_output=True, text=True, timeout=120)
+    log(f"phase 12 regress --history: exit {sub.returncode}; {sub.stdout.strip()[-300:]}")
+    check(sub.returncode == 0, f"repro_torch.obs.regress refused the history: {sub.stdout}")
+    log(f"phase 12 launches over its runs: {total}")
+    for k, v in total.items():
+        check(v > 0, f"phase 12 never launched {k}")
+    return {"launches": total, "runs": runs, "max_abs_err": err}
 
 
 def main() -> int:
@@ -1739,7 +2079,19 @@ def main() -> int:
     log(f"  {ssched.describe()}; final factors vs phase 8's max |d| {dx:.3g}; stall "
         f"{ps.get('prefetch', 0.0) / ps['driver'] * 100:.1f} %")
     check(dx <= MESH_TOL, f"quarter-Netflix mesh streaming SGD factors {dx} from phase 8's")
-    del sfac
+
+    del sfac, ssched
+    # -- 12. the entry points on the card ----------------------------------------------
+    t12 = time.perf_counter()
+    entry = entry_points(torch, wrappers, dev)
+    log(f"phase 12 took {time.perf_counter() - t12:.1f} s")
+    for k in kernels:
+        k["launches_entry_points"] = entry["launches"][k["name"]]
+        e = {"fused_herm": entry["max_abs_err"]["herm"], "batch_solve":
+             entry["max_abs_err"]["solve"], "sgd_tile": entry["max_abs_err"]["sgd"]}.get(k["name"])
+        if e is not None:
+            k["max_abs_err_entry_points"] = e
+            k["max_abs_err"] = max(k["max_abs_err"], e)
 
     for k in kernels:
         k["launches_mesh"] = launches_mesh.get(k["name"], 0)

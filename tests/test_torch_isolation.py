@@ -13,7 +13,9 @@ torch = pytest.importorskip("torch")
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+ENTRY_FILES = sorted((REPO / "examples_torch").glob("*.py")) + \
+    sorted((REPO / "benchmarks_torch").glob("*.py"))
+PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + ENTRY_FILES
 
 
 def _modules():
@@ -42,6 +44,35 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert res["n"] >= 42
     assert res["loaded"] == []          # importing built and loaded nothing
     assert res["jax"] == []
+
+
+def test_entry_points_import_with_jax_and_repro_blocked():
+    """Every script of ``examples_torch/`` and module of
+    ``benchmarks_torch/`` imports with ``jax`` and ``repro`` blocked, and
+    importing builds no kernel."""
+    code = (
+        "import sys, importlib, importlib.util, json\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        f"sys.path.insert(0, {str(REPO)!r})\n"
+        f"paths = {[str(p) for p in ENTRY_FILES]!r}\n"
+        "for p in paths:\n"
+        "    if '/benchmarks_torch/' in p:\n"
+        "        importlib.import_module('benchmarks_torch.' + p.rsplit('/', 1)[1][:-3])\n"
+        "    else:\n"
+        "        spec = importlib.util.spec_from_file_location('ex_' + p.rsplit('/', 1)[1][:-3], p)\n"
+        "        spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "from repro_torch.kernels import build\n"
+        "print(json.dumps({'n': len(paths), 'loaded': list(build.loaded()),\n"
+        "                  'jax': [k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
+        "                          if sys.modules[k] is not None]}))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["n"] == len(ENTRY_FILES) >= 13
+    assert res["loaded"] == [] and res["jax"] == []
 
 
 def _imported_roots(path: Path) -> set[str]:
