@@ -127,14 +127,31 @@ Phases, in order; any failure stops the run with a non-zero exit:
    checkpoints, against the plain versions; then ``benchmarks_torch/
    run.py`` once per module at its default size (``--autotune``), every
    row parsed, both JSON files written, and ``python -m
-   repro_torch.obs.regress --history`` accepting the history file.
+   repro_torch.obs.regress --history`` accepting the history file;
+13. the LM serving path and the embedding factorization:
+   ``examples_torch/serve_lm.py`` and ``examples_torch/factorize_embeddings.py``
+   at their defaults (the latter's launch line against the wrappers'
+   counts); phi3-mini-3.8b at full width and depth (32 layers, d=3072,
+   vocab 32256, 3.82 B parameters, random weights from seed 0): greedy
+   prefill/decode consistency in float32 (exact up to 2 layers) and in
+   float64 (at every depth), ``attention_chunked`` against
+   ``attention_full`` on a 2048-token prompt (3e-5), a bf16 2048-token
+   prefill, and ``ServeEngine`` on the example's traffic (6 requests, 3
+   slots, 12 new tokens, max_seq 96) with ms per decode step, tokens/s,
+   the allocator's peak and the step's bound; qwen3-4b at full width, cut
+   to ``QWEN3_LAYERS`` layers, the same way; phi3-mini's full embedding
+   (32256 x 3072) factorized at rank 16 for 6 iterations through the
+   CUDA kernels (RMSE falling each iteration, launches counted), both
+   kernels against their plain versions at K = 3072 and K = 32256.
 
 The second-to-last line of output is a JSON ``kernels`` record (with each
 kernel's ``launches_mesh``, its launches in phase 11's runs,
-``launches_entry_points``, its launches in phase 12's runs, and for the
-ALS kernels ``max_abs_err_mesh``, their error against the plain versions
-at 11b's shapes, and ``max_abs_err_entry_points`` for the three training
-kernels at phase 12's shapes); the last line is ``{"ok": true, "device":
+``launches_entry_points``, its launches in phase 12's runs,
+``launches_lm``, its launches in phase 13's full-width factorization, and
+for the ALS kernels ``max_abs_err_mesh``, their error against the plain
+versions at 11b's shapes, ``max_abs_err_lm`` at phase 13's, and
+``max_abs_err_entry_points`` for the three training kernels at phase 12's
+shapes); the last line is ``{"ok": true, "device":
 {...}}``.
 Without a GPU, or without the repository's ``src/`` beside this file, it
 exits non-zero and prints no result.
@@ -525,6 +542,382 @@ def entry_points(torch, wrappers: dict, dev) -> dict:
     for k, v in total.items():
         check(v > 0, f"phase 12 never launched {k}")
     return {"launches": total, "runs": runs, "max_abs_err": err}
+
+
+#: phase 13's tolerances: tests/test_attention.py:34-75 for the chunked
+#: attention; float32 forwards as tests/test_torch_lm.py holds them; the
+#: factorization's kernels at HERM_ATOL/HERM_RTOL, SOLVE_TOL
+ATTN_TOL = 3e-5
+FWD_TOL = 1e-4
+#: depth up to which the float32 greedy check is exact (see consistency)
+STRICT_LAYERS = 2
+#: float64 logits of prefill and decode against the forward's at any depth:
+#: float32's decode-vs-forward difference grows from 4e-6 at one layer to
+#: 0.2 at 32 on phi3-mini-3.8b; float64 rounds 2**29 times finer
+F64_TOL = 1e-7
+#: qwen3-4b keeps its widths and runs 8 of its 36 layers in phase 13
+QWEN3_LAYERS = 8
+
+
+def _serve_stats(tr, reqs, peak, weight_bytes, cache_bytes) -> dict:
+    """The engine run's numbers from its spans: ms per decode step and per
+    prefill token, tokens per second, and the decode step's bound (the
+    bf16 weights and the cache it reads, over the card's HBM rate)."""
+    dec = [e.dur / 1e3 for e in tr.spans("serve") if e.name == "serve.decode_step"]
+    pre = [(e.dur / 1e3, e.args["prompt_len"]) for e in tr.spans("serve")
+           if e.name == "serve.prefill"]
+    decoded = sum(len(r.out) for r in reqs)
+    total_s = (sum(dec) + sum(p for p, _ in pre)) / 1e3
+    bound = (weight_bytes + cache_bytes) / PEAK_HBM_BYTES * 1e3
+    return {"decode_steps": len(dec), "decode_ms_mean": sum(dec) / len(dec),
+            "decode_ms_median": sorted(dec)[len(dec) // 2], "decode_ms_min": min(dec),
+            "decode_ms_max": max(dec),
+            "prefill_ms_per_token": sum(p for p, _ in pre) / sum(n for _, n in pre),
+            "tokens": decoded, "tokens_per_s": decoded / total_s,
+            "decode_bound_ms": bound, "weight_bytes": weight_bytes,
+            "cache_bytes": cache_bytes, "alloc_peak_bytes": peak}
+
+
+def lm_serving(torch, wrappers: dict, dev) -> dict:
+    """Phase 13: the LM serving path and the embedding factorization.
+
+    Both LM examples at their defaults; phi3-mini-3.8b at full width and
+    depth (random weights from seed 0): greedy prefill/decode consistency
+    in float32 and float64, ``attention_chunked`` against ``attention_full`` on a
+    2048-token prompt, a bf16 2048-token prefill, and the serving engine on
+    the example's traffic with its numbers; qwen3-4b at full width and
+    ``QWEN3_LAYERS`` layers the same way; then phi3-mini's full embedding
+    factorized at rank 16 for 6 iterations through the CUDA kernels (the
+    counts set to 0 just before and read just after), and both kernels
+    against their plain versions at its K = 3072 and K = 32256.
+    """
+    import contextlib
+    import dataclasses
+    import math
+    import re
+
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels.batch_solve import batch_solve_cuda, batch_solve_plain
+    from repro_torch.kernels.hermitian import fused_herm_cuda, fused_herm_plain
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.models import transformer as T
+    from repro_torch.obs import MetricsRegistry, Tracer
+    from repro_torch.serving.engine import ServeEngine
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    serve_ex = _load_script("examples_torch/serve_lm.py")
+    fact_ex = _load_script("examples_torch/factorize_embeddings.py")
+    out = {"serve": {}, "max_abs_err": {"fused_herm": 0.0, "batch_solve": 0.0}}
+
+    def run_main(label, mod, argv):
+        for w in wrappers.values():
+            w.launches = 0
+        tee = _Tee(sys.stdout)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            ret = mod.main(argv)
+        torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in wrappers.items()}
+        log(f"phase 13 {label}: {time.perf_counter() - t0:.2f} s, launches {counts}")
+        return tee.text(), ret, counts
+
+    # 13a. both examples at their defaults
+    text, reqs, _ = run_main("examples_torch/serve_lm.py", serve_ex, ["--device", "cuda"])
+    check(len(reqs) == 6 and all(len(r.out) == 12 and r.done for r in reqs)
+          and re.search(r"^72 tokens in ", text, re.M) is not None,
+          "serve_lm did not serve its 6 requests x 12 tokens")
+    text, rmses, counts = run_main("examples_torch/factorize_embeddings.py", fact_ex,
+                                   ["--device", "cuda"])
+    line = [ln for ln in text.splitlines() if ln.startswith("kernel launches: ")]
+    check(len(line) == 1 and json.loads(line[0].removeprefix("kernel launches: "))
+          == {k: counts[k] for k in fact_ex.KERNELS},
+          f"factorize_embeddings' launch line {line} disagrees with the wrappers' {counts}")
+    for k in fact_ex.KERNELS:
+        check(counts[k] > 0, f"factorize_embeddings never launched {k}")
+    check(len(rmses) == 6 and all(np.isfinite(rmses)) and rmses[-1] < rmses[0],
+          f"factorize_embeddings' RMSE {rmses}")
+
+    def greedy(cfg, params, tokens, dtype):
+        """The greedy check at ``cfg``'s depth in ``dtype`` compute: the
+        last position's logits of a full forward, of prefill, and of one
+        decode step from a one-shorter prefix (tests/test_models_smoke.py:
+        57-82), with the tokens of all three."""
+        B, S = tokens.shape
+        kw = dict(compute_dtype=dtype)
+        full, _ = T.forward(cfg, params, {"tokens": tokens}, mode="train", **kw)
+        prefill = lm.make_prefill_step(cfg, max_seq=S + 4, **kw)
+        tok, _ = prefill(params, {"tokens": tokens})
+        lg_p, _ = T.forward(cfg, params, {"tokens": tokens}, mode="prefill", **kw)
+        _, cache2 = prefill(params, {"tokens": tokens[:, :S - 1]})
+        lens = torch.full((B,), S - 1, dtype=torch.int32, device=dev)
+        lg_d, _ = T.forward(cfg, params, {"tokens": tokens[:, S - 1:]}, mode="decode",
+                            cache=cache2, lengths=lens, **kw)
+        tok2, _, _ = lm.make_decode_step(cfg, **kw)(params, cache2, tokens[:, S - 1], lens)
+        check(bool(torch.isfinite(full).all()), f"{cfg.name}: non-finite logits")
+        return full[:, -1], lg_p[:, 0], lg_d[:, 0], tok, tok2
+
+    def consistency(cfg, params, label, depths):
+        """Greedy prefill/decode consistency on the first ``depth`` layers
+        for each of ``depths`` and the model's own depth.  In float64
+        compute (no step rounds to float32) the three paths' logits agree
+        within ``F64_TOL`` and their tokens are equal at every depth.  In
+        float32 the same holds within FWD_TOL up to ``STRICT_LAYERS``
+        layers; deeper, the random network amplifies float32 rounding layer
+        by layer (the reference's init gives q and k entries of
+        ~sqrt(D/H)), so there the float32 decode is held to the float64
+        forward no farther than 4 times the float32 forward is (plus
+        FWD_TOL), and its tokens are logged."""
+        rng = np.random.default_rng(0)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 12)).astype(np.int32)).to(dev)
+        grp = params["blocks"][0]["0"]
+        for depth in sorted({d for d in depths if d < cfg.n_layers} | {cfg.n_layers}):
+            c = dataclasses.replace(cfg, n_layers=depth)
+            p = dict(params, blocks=[{"0": {n: t[:depth] for n, t in grp.items()}}])
+            full, lg_p, lg_d, tok, tok2 = greedy(c, p, tokens, torch.float32)
+            full64, lg_p64, lg_d64, tok64, tok2_64 = greedy(c, p, tokens, torch.float64)
+            want = torch.argmax(full, dim=-1).to(torch.int32)
+            want64 = torch.argmax(full64, dim=-1).to(torch.int32)
+            top2 = full.topk(2, dim=-1).values
+            margin = top2[:, 0] - top2[:, 1]
+            d_p = (lg_p - full).abs().max().item()
+            d_d = (lg_d - full).abs().max().item()
+            d64 = max((lg_p64 - full64).abs().max().item(), (lg_d64 - full64).abs().max().item())
+            e_f = (full.double() - full64).abs().max().item()
+            e_d = (lg_d.double() - full64).abs().max().item()
+            out["greedy"].setdefault(label, []).append(
+                {"layers": depth, "prefill_max_abs": d_p, "decode_max_abs": d_d,
+                 "margins": margin.tolist(),
+                 "equal": bool(torch.equal(tok, want) and torch.equal(tok2, want)),
+                 "f64_max_abs": d64, "f64_equal": bool(torch.equal(tok64, want64)
+                                                        and torch.equal(tok2_64, want64)),
+                 "forward_from_f64": e_f, "decode_from_f64": e_d})
+            log(f"  {label}, first {depth} layers, float32 greedy: forward {want.tolist()}, "
+                f"prefill {tok.tolist()}, decode {tok2.tolist()}; top-2 margins "
+                f"{margin.tolist()}; last-position logits max|d| prefill {d_p:.3g}, decode "
+                f"{d_d:.3g}; from the float64 forward: forward {e_f:.3g}, decode {e_d:.3g}; "
+                f"float64: forward {want64.tolist()}, prefill {tok64.tolist()}, decode "
+                f"{tok2_64.tolist()}, max|d| {d64:.3g}")
+            check(torch.equal(tok64, want64) and torch.equal(tok2_64, want64) and d64 <= F64_TOL,
+                  f"{label}: float64 prefill/decode disagree with the forward at {depth} layers")
+            check(e_d <= 4 * e_f + FWD_TOL, f"{label}: the float32 decode is {e_d} from the "
+                  f"float64 forward at {depth} layers, the float32 forward only {e_f}")
+            if depth <= STRICT_LAYERS:
+                check(torch.equal(tok, want) and torch.equal(tok2, want)
+                      and d_p <= FWD_TOL and d_d <= FWD_TOL,
+                      f"{label}: float32 prefill/decode disagree with the forward at {depth} layers")
+
+    def serve_run(cfg, params16, label):
+        weight_bytes = sum(t.numel() * t.element_size() for t in T.tree_leaves(params16)) \
+            - params16["embed"].numel() * params16["embed"].element_size() \
+            + 3 * cfg.d_model * 2                   # 3 embedding rows a step
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tr, reg = Tracer(), MetricsRegistry()
+        eng = ServeEngine(cfg, params16, n_slots=3, max_seq=96, device=dev, tracer=tr,
+                          registry=reg)
+        cache_bytes = sum(t.numel() * t.element_size() for t in T.tree_leaves(eng.cache))
+        reqs = serve_ex.make_requests(cfg, 6, 12)
+        tee = _Tee(sys.stdout)
+        with contextlib.redirect_stdout(tee):
+            steps, secs = serve_ex.serve(eng, reqs)
+        peak = torch.cuda.max_memory_allocated() - resident
+        st = _serve_stats(tr, reqs, peak, weight_bytes, cache_bytes)
+        st.update(engine_steps=steps, seconds=secs)
+        # one more decode step under torch.profiler: the card's busy share
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            w0 = time.perf_counter()
+            eng._decode(eng.params, eng.cache, eng.last_tok, eng.lengths)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - w0) * 1e3
+        spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        busy = 0.0
+        end = float("-inf")
+        for lo, hi in sorted(spans):
+            if hi > end:
+                busy += hi - max(lo, end)
+                end = hi
+        st.update(profiled_step_ms=wall, device_ops=len(spans),
+                  device_busy_ms=busy / 1e3 if spans else None)
+        log(f"  {label} one decode step under the profiler: {wall:.3f} ms wall, "
+            + (f"{len(spans)} device ops busy {busy / 1e3:.3f} ms ({busy / 1e3 / wall * 100:.1f} "
+               f"%; idle {100 - busy / 1e3 / wall * 100:.1f} %)" if spans else
+               "device idle share not measured (the profiler returned no device events)"))
+        log(f"  {label} engine (bf16, 3 slots, max_seq 96, 6 requests x 12 tokens): {steps} "
+            f"steps in {secs:.3f} s; decode step {st['decode_ms_mean']:.3f} ms mean, "
+            f"{st['decode_ms_median']:.3f} median, {st['decode_ms_min']:.3f}-"
+            f"{st['decode_ms_max']:.3f} over {st['decode_steps']} steps; prefill "
+            f"{st['prefill_ms_per_token']:.3f} ms a prompt token; {st['tokens_per_s']:.1f} "
+            f"tokens/s; bound {st['decode_bound_ms']:.3f} ms a step ({weight_bytes} B of bf16 "
+            f"weights + {cache_bytes} B of cache over {PEAK_HBM_BYTES:.3g} B/s); allocator peak "
+            f"{peak / 2**20:.1f} MiB over {resident / 2**30:.2f} GiB resident; "
+            f"serve/tokens_decoded {reg.snapshot()['counters']['serve/tokens_decoded']}")
+        check(all(len(r.out) == 12 and r.done for r in reqs)
+              and all(0 <= t < cfg.padded_vocab for r in reqs for t in r.out),
+              f"{label}: the engine did not serve 6 requests x 12 valid tokens")
+        check(reg.snapshot()["counters"]["serve/tokens_decoded"] == 72,
+              f"{label}: serve/tokens_decoded is not 72")
+        return st
+
+    # 13b. phi3-mini-3.8b at full width and depth
+    cfg = registry.get_arch("phi3-mini-3.8b").model
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in T.tree_leaves(params))
+    log(f"phase 13 phi3-mini-3.8b: {cfg.n_layers} layers, d={cfg.d_model}, {cfg.n_heads} heads "
+        f"(kv {cfg.n_kv}) x {cfg.d_head}, d_ff={cfg.d_ff}, vocab {cfg.vocab} -> "
+        f"{cfg.padded_vocab}; {n_par} parameters stored ({cfg.params_count()} counted), "
+        f"{n_par * 4 / 1e9:.2f} GB float32, drawn in {time.perf_counter() - t0:.2f} s")
+    out["greedy"] = {}
+    consistency(cfg, params, "phi3-mini-3.8b", (1, 2, 4, 8, 16))
+
+    # attention_chunked against attention_full on a 2048-token prompt: the
+    # first layer's q, k, v in float32
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 2048)).astype(np.int32)).to(dev)
+    p0 = {n: t[0] for n, t in params["blocks"][0]["0"].items()}
+    xn = L.rms_norm(params["embed"][toks.long()], p0["ln1"], cfg.norm_eps)
+    pos = torch.arange(2048, device=dev)[None]
+    q = L.rope(T._proj(xn, p0["wq"]), pos, cfg.rope_theta)
+    k = L.rope(T._proj(xn, p0["wk"]), pos, cfg.rope_theta)
+    v = T._proj(xn, p0["wv"])
+    o_full = L.attention_full(q, k, v)
+    for skip in (False, True):
+        o_ch = L.attention_chunked(q, k, v, chunk_q=512, chunk_kv=512, causal_skip=skip)
+        d = (o_ch - o_full).abs().max().item()
+        check(torch.allclose(o_ch, o_full, atol=ATTN_TOL, rtol=ATTN_TOL),
+              f"attention_chunked (causal_skip={skip}) is {d} from attention_full at 2048 tokens")
+        log(f"  attention_chunked (512 x 512, causal_skip={skip}) vs attention_full, 2048 tokens, "
+            f"32 heads x 96, float32: max|d| {d:.3g} (tolerance {ATTN_TOL})")
+    ms_full = cuda_ms(torch, lambda: L.attention_full(q, k, v))
+    ms_ch = cuda_ms(torch, lambda: L.attention_chunked(q, k, v, causal_skip=True))
+    log(f"  one layer's attention at 2048 tokens: attention_full {ms_full:.3f} ms, "
+        f"attention_chunked (causal_skip) {ms_ch:.3f} ms")
+    del q, k, v, o_full, o_ch, xn
+    emb = params["embed"].clone()                       # 13d's matrix
+    params16 = lm.cast_params(params)
+    del params
+    torch.cuda.empty_cache()
+    prefill16 = lm.make_prefill_step(cfg)
+    ms_pre = cuda_ms(torch, lambda: prefill16(params16, {"tokens": toks}), reps=2)
+    tok, cache = prefill16(params16, {"tokens": toks})
+    check(0 <= int(tok[0]) < cfg.padded_vocab and all(
+        bool(torch.isfinite(t.float()).all()) for t in T.tree_leaves(cache)),
+        "the bf16 2048-token prefill gave no valid token or a non-finite cache")
+    out["prefill_2048_ms"] = ms_pre
+    log(f"  bf16 prefill of 2048 tokens (chunked attention, 512 x 512): {ms_pre:.2f} ms "
+        f"({2048 / ms_pre * 1e3:.0f} tokens/s)")
+    del cache
+    out["serve"]["phi3-mini-3.8b"] = serve_run(cfg, params16, "phi3-mini-3.8b")
+    del params16
+    torch.cuda.empty_cache()
+
+    # 13c. qwen3-4b at full width, QWEN3_LAYERS of its 36 layers
+    full_q = registry.get_arch("qwen3-4b").model
+    cfg_q = dataclasses.replace(full_q, n_layers=QWEN3_LAYERS)
+    pq = T.init_params(cfg_q, torch.Generator(device=dev).manual_seed(0))
+    log(f"phase 13 qwen3-4b cut to {QWEN3_LAYERS} of {full_q.n_layers} layers: d="
+        f"{cfg_q.d_model}, {cfg_q.n_heads} heads (GQA kv {cfg_q.n_kv}) x {cfg_q.d_head}, "
+        f"qk-norm, tied head, d_ff={cfg_q.d_ff}, vocab {cfg_q.vocab} -> {cfg_q.padded_vocab}; "
+        f"{sum(t.numel() for t in T.tree_leaves(pq))} parameters stored")
+    consistency(cfg_q, pq, "qwen3-4b", (1, 2, 4))
+    pq16 = lm.cast_params(pq)
+    del pq
+    out["serve"]["qwen3-4b"] = serve_run(cfg_q, pq16, f"qwen3-4b ({QWEN3_LAYERS} layers)")
+    del pq16
+    torch.cuda.empty_cache()
+
+    # 13d. phi3-mini's full embedding factorized at rank 16, 6 iterations
+    V, dmod = emb.shape
+    for w in wrappers.values():
+        w.launches = 0
+    tee = _Tee(sys.stdout)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        states, rm = fact_ex.factorize(emb, 16, 6, dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    out["launches"] = {k: w.launches for k, w in wrappers.items()}
+    out["factorize"] = {"seconds": secs, "rmse": rm}
+    log(f"phase 13 factorization of phi3-mini's embedding ({V} x {dmod}, "
+        f"{V * dmod} ratings, rank 16): 6 iterations in {secs:.2f} s, recon RMSE {rm}; "
+        f"launches {out['launches']}")
+    check(all(np.isfinite(rm)), f"the full-width factorization's RMSE {rm}")
+    for k in fact_ex.KERNELS:
+        check(out["launches"][k] > 0, f"phase 13's factorization never launched {k}")
+
+    # what ALS descends: the weighted-lambda objective of the run's states
+    lam = fact_ex.LAM
+
+    def objective(state):
+        err = (state.x @ state.theta.T - emb).double().square().sum()
+        reg = lam * (dmod * state.x.double().square().sum()
+                     + V * state.theta.double().square().sum())
+        return (err + reg).item(), math.sqrt(err.item() / (V * dmod))
+
+    objs = [objective(s_) for s_ in states]
+    out["factorize"]["objective"] = [o for o, _ in objs]
+    out["factorize"]["rmse_init"] = objs[0][1]
+    log(f"  weighted-lambda objective from the initial factors (RMSE {objs[0][1]:.6g}) over "
+        f"6 iterations: {[o for o, _ in objs]}")
+    check(rm[0] < objs[0][1] and all(b[0] <= a[0] * (1 + 1e-6) for a, b in zip(objs, objs[1:])),
+          f"ALS did not descend its objective on the embedding: {objs}")
+    init = states[0]
+    del states
+    r, rt = fact_ex.dense_ell(emb)
+
+    # both kernels against their plain versions at its shapes: R (K = 3072)
+    # against the initial theta (the run's first call), R^T (K = 32256)
+    # against the initial x (the run's factors after it are ~0: its
+    # weighted lambda, 1e-3 x 3072 and 1e-3 x 32256, outweighs the matrix)
+    for side, fixed, (idx, val, cnt) in (("R", init.theta, r), ("R^T", init.x, rt)):
+        K = idx.shape[1]
+        diag = lam * cnt.float()
+        A, B = fused_herm_cuda(fixed, idx, val, cnt, diag)
+        step = max(1, PLAIN_CHUNK_ELEMS // (K * fixed.shape[1]))
+        for c0 in range(0, idx.shape[0], step):
+            sl = slice(c0, min(c0 + step, idx.shape[0]))
+            A0, B0 = fused_herm_plain(fixed, idx[sl], val[sl], cnt[sl], diag[sl])
+            check(torch.allclose(A[sl], A0, atol=HERM_ATOL, rtol=HERM_RTOL)
+                  and torch.allclose(B[sl], B0, atol=HERM_ATOL, rtol=HERM_RTOL),
+                  f"fused_herm disagrees with its plain version on the embedding's {side}")
+            out["max_abs_err"]["fused_herm"] = max(
+                out["max_abs_err"]["fused_herm"], (A[sl] - A0).abs().max().item(),
+                (B[sl] - B0).abs().max().item())
+            del A0, B0
+        x1, x0 = batch_solve_cuda(A, B), batch_solve_plain(A, B)
+        check(torch.allclose(x1, x0, atol=SOLVE_TOL, rtol=SOLVE_TOL),
+              f"batch_solve disagrees with its plain version on the embedding's {side}")
+        out["max_abs_err"]["batch_solve"] = max(out["max_abs_err"]["batch_solve"],
+                                                (x1 - x0).abs().max().item())
+        ms_h = cuda_ms(torch, lambda: fused_herm_cuda(fixed, idx, val, cnt, diag))
+        ms_s = cuda_ms(torch, lambda: batch_solve_cuda(A, B))
+        m, f, nnz = idx.shape[0], fixed.shape[1], idx.numel()
+        # bounds as phase 7 counts them: the larger of ops / fp32 peak, bytes / HBM
+        hb = max(nnz * (f * (f + 1) + 2 * f) / PEAK_FP32_FLOPS, (
+            fixed.numel() * 4 + nnz * 8 + m * 8 + A.numel() * 4 + B.numel() * 4)
+            / PEAK_HBM_BYTES) * 1e3
+        sb = max(m * (f ** 3 / 3 + 2 * f * f) / PEAK_FP32_FLOPS,
+                 (A.numel() * 4 + 2 * B.numel() * 4) / PEAK_HBM_BYTES) * 1e3
+        out[f"herm_ms_{side}"], out[f"solve_ms_{side}"] = ms_h, ms_s
+        out[f"herm_bound_ms_{side}"], out[f"solve_bound_ms_{side}"] = hb, sb
+        log(f"  the embedding's {side}: {m} rows, K={K}, f={f}, max|A| "
+            f"{A.abs().max().item():.4g}: fused_herm {ms_h:.3f} ms (bound {hb:.3f}), "
+            f"batch_solve {ms_s:.3f} ms (bound {sb:.4f}); max|dA,dB| "
+            f"{out['max_abs_err']['fused_herm']:.3g}, max|dx| "
+            f"{out['max_abs_err']['batch_solve']:.3g} so far")
+        del A, B, x1, x0
+    del emb, r, rt, init
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -2092,6 +2485,18 @@ def main() -> int:
         if e is not None:
             k["max_abs_err_entry_points"] = e
             k["max_abs_err"] = max(k["max_abs_err"], e)
+
+    # -- 13. the LM serving path and the embedding factorization --------------------
+    t13 = time.perf_counter()
+    lmr = lm_serving(torch, wrappers, dev)
+    log(f"phase 13 took {time.perf_counter() - t13:.1f} s")
+    for k in kernels:
+        k["launches_lm"] = lmr["launches"][k["name"]]
+        e = lmr["max_abs_err"].get(k["name"])
+        if e is not None:
+            k["max_abs_err_lm"] = e
+            k["max_abs_err"] = max(k["max_abs_err"], e)
+    log("phase 13 serving: " + json.dumps(lmr["serve"]))
 
     for k in kernels:
         k["launches_mesh"] = launches_mesh.get(k["name"], 0)

@@ -1,0 +1,343 @@
+"""The port's serving engine and LM examples against the reference's
+(``repro.serving.engine``, ``examples/serve_lm.py``,
+``examples/factorize_embeddings.py``) on the CPU.
+
+Both engines run the reference's weights (injected through
+``params_from_numpy``) in bf16 and make the same sequence of decode calls,
+so the tests compare them call by call, every slot of every call.  Each
+bf16 layer of the port is bit-equal to the reference's layer run alone,
+but XLA fuses the reference's layer loop and drops some intermediate bf16
+roundings there, so the two engines' bf16 logits differ by a few ulps
+(up to 0.164 on logits below 3 over these configs' decode calls).  So the
+logits must agree within ``LOGIT_TOL``, and where the greedy tokens differ,
+the reference's top-2 margin at that call must be under ``NEAR_TIE``; the
+test stops comparing that slot until its next request (its sequence then
+legitimately differs), and holds each arch's flips to the list it shows.
+"""
+import contextlib
+import importlib.util
+import io
+import re
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import registry as ref_registry  # noqa: E402
+from repro.core import als as ref_als  # noqa: E402
+from repro.models import transformer as RT  # noqa: E402
+from repro.obs.trace import Tracer as RefTracer  # noqa: E402
+from repro.serving import engine as ref_engine  # noqa: E402
+
+from repro_torch.configs import registry  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.obs import MetricsRegistry, Tracer  # noqa: E402
+from repro_torch.serving import engine  # noqa: E402
+
+REPO = Path(__file__).resolve().parents[1]
+TOKEN_ARCHS = ["phi3-mini-3.8b", "qwen3-4b", "qwen1.5-4b", "mistral-large-123b"]
+#: a flip is accepted where the reference's top-2 margin is under 1/16:
+#: 8 bf16 ulps at logits in [1, 2)
+NEAR_TIE = 0.0625
+#: bf16 logits of the two engines on a slot whose tokens still agree
+LOGIT_TOL = 0.25
+#: the near-tie flips each arch's run shows: (decode call, slot, request);
+#: every margin is at most 0.039, and 0.0 at two of mistral-large's calls,
+#: where the reference's two largest logits are equal
+FLIPS = {"phi3-mini-3.8b": [(8, 0, 0), (57, 0, 3)], "qwen3-4b": [],
+         "qwen1.5-4b": [(51, 2, 5)],
+         "mistral-large-123b": [(17, 2, 2), (28, 0, 0), (29, 1, 1), (50, 2, 5), (62, 0, 3)]}
+FACTOR_TOL = 2e-3
+
+
+def _load(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _requests(cls, cfg, n=6, new=12, seed=0):
+    """The example's traffic (``examples/serve_lm.py``)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        prompt = rng.integers(0, cfg.vocab, size=rng.integers(3, 9))
+        out.append(cls(rid=i, prompt=prompt.astype(np.int32), max_new_tokens=new))
+    return out
+
+
+def _engines(arch, n_slots, max_seq, seed=0):
+    """Both engines on the reference's weights, their decode calls
+    recorded: (each slot's request, inputs, lengths, next tokens, logits)."""
+    rcfg, cfg = ref_registry.smoke_config(arch), registry.smoke_config(arch)
+    rp = RT.init_params(rcfg, jax.random.PRNGKey(seed))
+    pp = T.params_from_numpy(cfg, jax.tree.map(np.asarray, rp), "cpu")
+    re_ = ref_engine.ServeEngine(rcfg, rp, n_slots=n_slots, max_seq=max_seq)
+    pe = engine.ServeEngine(cfg, pp, n_slots=n_slots, max_seq=max_seq, device="cpu")
+    rlog, plog = [], []
+    rdec, pdec = re_._decode, pe._decode
+    logits_of = jax.jit(lambda p, c, t, l: RT.forward(
+        rcfg, p, {"tokens": t[:, None]}, mode="decode", cache=c, lengths=l,
+        remat=False)[0][:, 0].astype(jnp.float32))
+
+    def rids(eng):
+        return [None if r is None else r.rid for r in eng.slot_req]
+
+    def ref_decode(p, c, t, l):
+        lg = np.asarray(logits_of(p, c, t, l))
+        n, c2, l2 = rdec(p, c, t, l)
+        rlog.append((rids(re_), np.asarray(t), np.asarray(l), np.asarray(n), lg))
+        return n, c2, l2
+
+    def port_decode(p, c, t, l):
+        rec = (rids(pe), t.numpy().copy(), l.numpy().copy())
+        # the same call's logits (it writes the same cache rows as pdec)
+        lg = T.forward(cfg, p, {"tokens": t[:, None]}, mode="decode", cache=c,
+                       lengths=l)[0][:, 0].float().numpy()
+        n, c2, l2 = pdec(p, c, t, l)
+        plog.append(rec + (n.numpy().copy(), lg))
+        return n, c2, l2
+
+    re_._decode, pe._decode = ref_decode, port_decode
+    return (rcfg, re_, rlog), (cfg, pe, plog)
+
+
+def _compare_calls(rlog, plog, n_slots):
+    """Call by call, every slot: the same request and length, the same
+    input, logits within ``LOGIT_TOL``, the same greedy token unless the
+    reference's top-2 margin is under ``NEAR_TIE``.  After a flip the
+    slot's sequence legitimately differs, so its inputs and logits are
+    compared again once a new request is admitted into it at length 0
+    (both engines then rewrite its rows from the start).  Returns the flips
+    (call, slot, request, margin)."""
+    assert len(rlog) == len(plog) > 0
+    diverged, flips, before = set(), [], [None] * n_slots
+    for k, ((rr, rt, rl, rn, rlg), (pr, pt, pl, pn, plg)) in enumerate(zip(rlog, plog)):
+        assert rr == pr and np.array_equal(rl, pl), (k, rr, pr, rl, pl)
+        for s in range(n_slots):
+            if s in diverged and rr[s] is not None and rr[s] != before[s] and rl[s] == 0:
+                diverged.discard(s)
+            if s in diverged:
+                continue
+            assert rt[s] == pt[s], (k, s, rt, pt)
+            assert np.abs(rlg[s] - plg[s]).max() <= LOGIT_TOL, (k, s)
+            if rn[s] != pn[s]:
+                top2 = np.sort(rlg[s])[-2:]
+                margin = float(top2[1] - top2[0])
+                assert margin <= NEAR_TIE, (k, s, rn[s], pn[s], margin)
+                flips.append((k, s, rr[s], margin))
+                diverged.add(s)
+        before = rr
+    return flips
+
+
+@pytest.mark.parametrize("arch", TOKEN_ARCHS)
+def test_engine_matches_reference_token_for_token(arch):
+    (rcfg, re_, rlog), (cfg, pe, plog) = _engines(arch, n_slots=3, max_seq=96)
+    rreqs = _requests(ref_engine.Request, rcfg)
+    preqs = _requests(engine.Request, cfg)
+    for a, b in zip(rreqs, preqs):
+        re_.submit(a)
+        pe.submit(b)
+    re_.run()
+    pe.run()
+    flips = _compare_calls(rlog, plog, 3)
+    assert [f[:3] for f in flips] == FLIPS[arch], flips
+    assert all(len(r.out) == 12 for r in preqs)
+    assert pe.pending == [] and all(r is None for r in pe.slot_req)
+    flipped = {rid for _, _, rid, _ in flips}
+    for a, b in zip(rreqs, preqs):
+        if a.rid not in flipped:
+            assert a.out == b.out, (a.rid, a.out, b.out)
+    np.testing.assert_array_equal(np.asarray(re_.lengths), pe.lengths.numpy())
+
+
+def test_engine_idle_slot_overflow_matches_reference():
+    """A slot idles while another decodes, so its length keeps growing;
+    a request admitted there later starts at that length and writes past
+    ``max_seq``: both engines drop those writes."""
+    max_seq = 16
+    (rcfg, re_, rlog), (cfg, pe, plog) = _engines("phi3-mini-3.8b", n_slots=2,
+                                                  max_seq=max_seq, seed=2)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32) for n in (2, 3, 3)]
+    news = (1, 12, 6)
+    for eng, cls in ((re_, ref_engine.Request), (pe, engine.Request)):
+        reqs = [cls(rid=i, prompt=p, max_new_tokens=n)
+                for i, (p, n) in enumerate(zip(prompts, news))]
+        eng.submit(reqs[0])
+        eng.submit(reqs[1])
+        for step in range(40):
+            if step == 11:
+                eng.submit(reqs[2])          # admitted into the idle slot 0
+            if not eng.step():
+                break
+        assert all(len(r.out) == n for r, n in zip(reqs, news))
+    assert max(int(rec[1].max()) for rec in plog) > max_seq
+    flips = _compare_calls(rlog, plog, 2)
+    assert [f[:3] for f in flips] == [(6, 1, 1)], flips
+    np.testing.assert_array_equal(np.asarray(re_.lengths), pe.lengths.numpy())
+
+
+def test_decode_drops_cache_writes_past_the_end():
+    cfg = registry.smoke_config("phi3-mini-3.8b")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    cache = T.init_cache(cfg, 2, 4, torch.float32, device="cpu")
+    from repro_torch.models import lm
+
+    dec = lm.make_decode_step(cfg, compute_dtype=torch.float32)
+    lengths = torch.tensor([3, 4], dtype=torch.int32)
+    tok, cache, lens = dec(params, cache, torch.tensor([5, 7], dtype=torch.int32), lengths)
+    k = cache["blocks"][0]["0"]["k"]          # [L, B, S, KV, dh]
+    assert lens.tolist() == [4, 5]
+    assert bool((k[:, 0, 3] != 0).any()) and bool((k[:, 1] == 0).all())
+    assert tok.shape == (2,)
+
+
+def test_bf16_cache_equals_float32_cache():
+    """The reference's engine keeps a float32 cache of keys and values
+    that were bf16 when written: a bf16 cache gives the same logits."""
+    from repro_torch.models import lm
+
+    cfg = registry.smoke_config("qwen3-4b")
+    params = lm.cast_params(T.init_params(cfg, torch.Generator().manual_seed(1)))
+    dec = lm.make_decode_step(cfg)
+    toks = torch.tensor([[3, 9, 11], [4, 4, 100], [7, 8, 9], [1, 2, 3]], dtype=torch.int32)
+    outs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        cache = T.init_cache(cfg, 3, 8, dt, device="cpu")
+        lengths = torch.zeros(3, dtype=torch.int32)
+        got = []
+        for t in toks:
+            logits, cache = T.forward(cfg, params, {"tokens": t[:, None]}, mode="decode",
+                                      cache=cache, lengths=lengths)
+            got.append(logits)
+            _, cache, lengths = dec(params, cache, t, lengths)
+        outs[dt] = torch.stack(got)
+    assert torch.equal(outs[torch.float32], outs[torch.bfloat16])
+
+
+def test_engine_reports_spans_and_metrics():
+    cfg = registry.smoke_config("phi3-mini-3.8b")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    tr, reg = Tracer(), MetricsRegistry()
+    eng = engine.ServeEngine(cfg, params, n_slots=2, max_seq=32, device="cpu",
+                             tracer=tr, registry=reg)
+    reqs = _requests(engine.Request, cfg, n=3, new=4)
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    names = [e.name for e in tr.spans("serve")]
+    assert names.count("serve.prefill") == 3
+    assert names.count("serve.decode_step") >= 4
+    snap = reg.snapshot()
+    assert snap["counters"]["serve/tokens_decoded"] == 12
+    assert "active_slots" in snap["gauges"]
+    # the reference's engine records the same span names and counts
+    rtr = RefTracer()
+    rcfg = ref_registry.smoke_config("phi3-mini-3.8b")
+    re_ = ref_engine.ServeEngine(rcfg, RT.init_params(rcfg, jax.random.PRNGKey(0)),
+                                 n_slots=2, max_seq=32, tracer=rtr)
+    for r in _requests(ref_engine.Request, rcfg, n=3, new=4):
+        re_.submit(r)
+    re_.run()
+    assert [e.name for e in rtr.spans("serve")] == names
+
+
+def test_engine_refuses_mesh_and_needs_a_device():
+    cfg = registry.smoke_config("phi3-mini-3.8b")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="13d"):
+        engine.ServeEngine(cfg, params, device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="13d"):
+        engine.ServeEngine(cfg, params, device="cpu", serve_seq_shard=True)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            engine.ServeEngine(cfg, params)
+
+
+def test_non_attention_archs_raise_in_the_engine():
+    cfg = registry.smoke_config("olmoe-1b-7b")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    eng = engine.ServeEngine(cfg, params, n_slots=1, max_seq=8, device="cpu")
+    eng.submit(engine.Request(rid=0, prompt=np.array([1, 2], np.int32), max_new_tokens=1))
+    with pytest.raises(NotImplementedError, match="13b"):
+        eng.run()
+
+
+# ---------------------------------------------------------------------------
+# the examples
+# ---------------------------------------------------------------------------
+
+def _run_main(mod, argv):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        ret = mod.main(argv)
+    return out.getvalue(), ret
+
+
+def test_serve_lm_example_on_cpu():
+    ex = _load(REPO / "examples_torch" / "serve_lm.py", "ex_serve_lm")
+    text, reqs = _run_main(ex, ["--device", "cpu"])
+    assert len(reqs) == 6 and all(len(r.out) == 12 and r.done for r in reqs)
+    assert re.search(r"^72 tokens in [0-9.]+s over \d+ engine steps \(.* 3 slots\)$", text, re.M)
+    assert len(re.findall(r"^req \d+: prompt=", text, re.M)) == 6
+    # the reference's traffic: the same prompts from the same seed
+    rcfg = ref_registry.smoke_config("phi3-mini-3.8b")
+    assert [r.prompt.tolist() for r in reqs] == \
+        [r.prompt.tolist() for r in _requests(ref_engine.Request, rcfg)]
+    text, reqs = _run_main(ex, ["--device", "cpu", "--arch", "qwen3-4b", "--requests", "2",
+                                "--slots", "1", "--new-tokens", "3"])
+    assert [len(r.out) for r in reqs] == [3, 3]
+    with pytest.raises(SystemExit, match="stub-frontend"):
+        ex.main(["--device", "cpu", "--arch", "musicgen-medium"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            ex.main([])
+
+
+def test_factorize_embeddings_matches_reference_loop():
+    """The port's loop from the reference's embedding and initial factors,
+    per iteration within 2e-3 of the reference example's RMSEs."""
+    ref_ex = _load(REPO / "examples" / "factorize_embeddings.py", "ref_factorize")
+    argv, out = sys.argv, io.StringIO()
+    sys.argv = ["factorize_embeddings.py"]
+    try:
+        with contextlib.redirect_stdout(out):
+            ref_ex.main()
+    finally:
+        sys.argv = argv
+    ref_text = out.getvalue()
+    ref_rmse = [float(v) for v in re.findall(r"recon RMSE=([0-9.]+)", ref_text)]
+    assert len(ref_rmse) == 6
+
+    rcfg = ref_registry.smoke_config("recurrentgemma-2b")
+    emb = np.array(RT.init_params(rcfg, jax.random.PRNGKey(0))["embed"], np.float32)
+    st0 = ref_als.als_init(*emb.shape, ref_als.AlsConfig(f=16, lam=1e-3, iters=1, mode="ref"))
+    ex = _load(REPO / "examples_torch" / "factorize_embeddings.py", "ex_factorize")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        _, rmses = ex.factorize(torch.from_numpy(emb), 16, 6, "cpu",
+                                init=(np.asarray(st0.x), np.asarray(st0.theta)))
+    np.testing.assert_allclose(rmses, ref_rmse, atol=FACTOR_TOL, rtol=0)
+    assert re.findall(r"recon RMSE=([0-9.]+)", out.getvalue()) == [f"{v:.5f}" for v in rmses]
+
+
+def test_factorize_embeddings_example_on_cpu():
+    ex = _load(REPO / "examples_torch" / "factorize_embeddings.py", "ex_factorize")
+    text, rmses = _run_main(ex, ["--device", "cpu"])
+    assert text.startswith("recurrentgemma-2b: embedding 128x64, rank 16 -> 37.5% of original size")
+    assert len(rmses) == 6 and all(b <= a + 1e-7 for a, b in zip(rmses, rmses[1:]))
+    assert 'kernel launches: {"fused_herm": 0, "batch_solve": 0}' in text
+    text, rmses = _run_main(ex, ["--device", "cpu", "--arch", "phi3-mini-3.8b", "--rank", "4",
+                                 "--iters", "2"])
+    assert "phi3-mini-3.8b: embedding 128x64, rank 4" in text and len(rmses) == 2
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            ex.main([])
