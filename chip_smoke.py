@@ -142,7 +142,20 @@ Phases, in order; any failure stops the run with a non-zero exit:
    to ``QWEN3_LAYERS`` layers, the same way; phi3-mini's full embedding
    (32256 x 3072) factorized at rank 16 for 6 iterations through the
    CUDA kernels (RMSE falling each iteration, launches counted), both
-   kernels against their plain versions at K = 3072 and K = 32256.
+   kernels against their plain versions at K = 3072 and K = 32256;
+14. the MoE and recurrent families (``PHASE14``), one model at a time,
+   random weights from seed 0: olmoe-1b-7b (16 layers, 64 experts top-8),
+   recurrentgemma-2b (26 layers: 8 x (RG-LRU, RG-LRU, window-2048
+   attention) + 2 RG-LRU) and rwkv6-7b (32 layers) at full width and
+   depth, moonshot-v1-16b-a3b at full width and 8 of its 48 layers: phase
+   13's greedy check in float32 and float64 at each depth up to the
+   model's own (a MoE at a capacity that drops no pair, and at its own
+   capacity prefill against the forward), ``ServeEngine`` on the
+   example's traffic (ms per decode step against its bound, tokens/s, the
+   allocator's peak, one profiled step's device busy share and op count),
+   and for recurrentgemma-2b and rwkv6-7b a timed bf16 prefill of 512
+   tokens through the sequential scans.  This path has no CUDA kernel: the
+   reference computes these blocks outside any Pallas kernel.
 
 The second-to-last line of output is a JSON ``kernels`` record (with each
 kernel's ``launches_mesh``, its launches in phase 11's runs,
@@ -578,6 +591,197 @@ def _serve_stats(tr, reqs, peak, weight_bytes, cache_bytes) -> dict:
             "cache_bytes": cache_bytes, "alloc_peak_bytes": peak}
 
 
+def _first_layers(cfg, params, depth):
+    """``cfg`` and ``params`` cut to their first ``depth`` layers: the
+    leaves of the layers kept are views of ``params``'.  The scan groups of
+    the cut follow ``block_pattern`` (full periods, then a tail)."""
+    import dataclasses
+
+    if depth == cfg.n_layers:
+        return cfg, params
+    period = len(cfg.block_pattern)
+    n_full, rem = divmod(depth, period)
+    g0 = params["blocks"][0]
+    reps0 = next(iter(next(iter(g0.values())).values())).shape[0]
+    blocks = []
+    if n_full:
+        blocks.append({pi: {n: t[:n_full] for n, t in g.items()} for pi, g in g0.items()})
+    if rem:   # the tail: from period n_full of group 0, or the model's own tail
+        src, at = (g0, n_full) if n_full < reps0 else (params["blocks"][1], 0)
+        blocks.append({str(pi): {n: t[at:at + 1] for n, t in src[str(pi)].items()}
+                       for pi in range(rem)})
+    return dataclasses.replace(cfg, n_layers=depth), dict(params, blocks=blocks)
+
+
+def _no_drop(cfg):
+    """A MoE ``cfg`` at ``capacity_factor = ceil(E / k)``, where no
+    token-expert pair drops (capacity >= the token count); others as they
+    are.  The capacity is the reference's arithmetic on the token count, so
+    a decode step of B tokens drops other pairs than a forward of B*S."""
+    import dataclasses
+    import math
+
+    if cfg.moe is None:
+        return cfg
+    cf = float(math.ceil(cfg.moe.n_experts / cfg.moe.top_k))
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
+
+
+def _greedy(torch, dev, cfg, params, tokens, dtype):
+    """The greedy check at ``cfg``'s depth in ``dtype`` compute: the last
+    position's logits of a full forward, of prefill, and of one decode step
+    from a one-shorter prefix (tests/test_models_smoke.py:57-82), with the
+    tokens of all three.  A window longer than that prefix gets its ring
+    padded with empty slots (``pos`` -1): the prefill step, as the
+    reference's, sizes a window's ring to the prompt, and a decode step
+    would overwrite its oldest entry."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import lm
+    from repro_torch.models import transformer as T
+
+    B, S = tokens.shape
+    kw = dict(compute_dtype=dtype)
+    full, _ = T.forward(cfg, params, {"tokens": tokens}, mode="train", **kw)
+    prefill = lm.make_prefill_step(cfg, max_seq=S + 4, **kw)
+    tok, _ = prefill(params, {"tokens": tokens})
+    lg_p, _ = T.forward(cfg, params, {"tokens": tokens}, mode="prefill", **kw)
+    _, cache2 = prefill(params, {"tokens": tokens[:, :S - 1]})
+    if cfg.sliding_window and S - 1 < cfg.sliding_window:
+        n = min(cfg.sliding_window, S + 4) - (S - 1)
+        cache2 = T.tree_map(lambda name, t: F.pad(t, (0, 0, 0, 0, 0, n)) if name in ("k", "v")
+                            else F.pad(t, (0, n), value=-1) if name == "pos" else t, cache2)
+    lens = torch.full((B,), S - 1, dtype=torch.int32, device=dev)
+    lg_d, _ = T.forward(cfg, params, {"tokens": tokens[:, S - 1:]}, mode="decode",
+                        cache=T.tree_map(lambda _, t: t.clone(), cache2), lengths=lens, **kw)
+    tok2, _, _ = lm.make_decode_step(cfg, **kw)(params, cache2, tokens[:, S - 1], lens)
+    check(bool(torch.isfinite(full).all()), f"{cfg.name}: non-finite logits")
+    return full[:, -1], lg_p[:, 0], lg_d[:, 0], tok, tok2
+
+
+def _consistency(torch, dev, cfg, params, label, depths, record):
+    """Greedy prefill/decode consistency on the first ``depth`` layers for
+    each of ``depths`` and the model's own depth, appended to
+    ``record[label]``.  In float64 compute (no step rounds to float32) the
+    three paths' logits agree within ``F64_TOL`` and their tokens are equal
+    at every depth.  In float32 the same holds within FWD_TOL up to
+    ``STRICT_LAYERS`` layers; deeper, the random network amplifies float32
+    rounding layer by layer (the reference's init gives q and k entries of
+    ~sqrt(D/H)), so there the float32 decode is held to the float64
+    forward no farther than 4 times the float32 forward is (plus FWD_TOL),
+    and its tokens are logged.  Returns the deepest float64 depth."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 12)).astype(np.int32)).to(dev)
+    for depth in sorted({d for d in depths if d < cfg.n_layers} | {cfg.n_layers}):
+        c, p = _first_layers(cfg, params, depth)
+        full, lg_p, lg_d, tok, tok2 = _greedy(torch, dev, c, p, tokens, torch.float32)
+        full64, lg_p64, lg_d64, tok64, tok2_64 = _greedy(torch, dev, c, p, tokens, torch.float64)
+        want = torch.argmax(full, dim=-1).to(torch.int32)
+        want64 = torch.argmax(full64, dim=-1).to(torch.int32)
+        top2 = full.topk(2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        d_p = (lg_p - full).abs().max().item()
+        d_d = (lg_d - full).abs().max().item()
+        d64 = max((lg_p64 - full64).abs().max().item(), (lg_d64 - full64).abs().max().item())
+        e_f = (full.double() - full64).abs().max().item()
+        e_d = (lg_d.double() - full64).abs().max().item()
+        record.setdefault(label, []).append(
+            {"layers": depth, "prefill_max_abs": d_p, "decode_max_abs": d_d,
+             "margins": margin.tolist(),
+             "equal": bool(torch.equal(tok, want) and torch.equal(tok2, want)),
+             "f64_max_abs": d64, "f64_equal": bool(torch.equal(tok64, want64)
+                                                    and torch.equal(tok2_64, want64)),
+             "forward_from_f64": e_f, "decode_from_f64": e_d})
+        log(f"  {label}, first {depth} layers, float32 greedy: forward {want.tolist()}, "
+            f"prefill {tok.tolist()}, decode {tok2.tolist()}; top-2 margins "
+            f"{margin.tolist()}; last-position logits max|d| prefill {d_p:.3g}, decode "
+            f"{d_d:.3g}; from the float64 forward: forward {e_f:.3g}, decode {e_d:.3g}; "
+            f"float64: forward {want64.tolist()}, prefill {tok64.tolist()}, decode "
+            f"{tok2_64.tolist()}, max|d| {d64:.3g}")
+        check(torch.equal(tok64, want64) and torch.equal(tok2_64, want64) and d64 <= F64_TOL,
+              f"{label}: float64 prefill/decode disagree with the forward at {depth} layers")
+        check(e_d <= 4 * e_f + FWD_TOL, f"{label}: the float32 decode is {e_d} from the "
+              f"float64 forward at {depth} layers, the float32 forward only {e_f}")
+        if depth <= STRICT_LAYERS:
+            check(torch.equal(tok, want) and torch.equal(tok2, want)
+                  and d_p <= FWD_TOL and d_d <= FWD_TOL,
+                  f"{label}: float32 prefill/decode disagree with the forward at {depth} layers")
+    return depth
+
+
+def _serve_run(torch, dev, serve_ex, cfg, params, label):
+    """``ServeEngine`` (bf16, 3 slots, max_seq 96) on the example's traffic
+    (6 requests x 12 tokens), then one more decode step under the profiler.
+    The bound reads the engine's weights (less the embedding rows a step
+    does not read, where the head is its own matrix) and its whole cache
+    once over the card's HBM rate; the allocator's peak is the run's over
+    the engine's weights and cache.  Returns (stats, engine)."""
+    import contextlib
+
+    from repro_torch.models import transformer as T
+    from repro_torch.obs import MetricsRegistry, Tracer
+    from repro_torch.serving.engine import ServeEngine
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    tr, reg = Tracer(), MetricsRegistry()
+    eng = ServeEngine(cfg, params, n_slots=3, max_seq=96, device=dev, tracer=tr,
+                      registry=reg)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    weight_bytes = sum(t.numel() * t.element_size() for t in T.tree_leaves(eng.params))
+    if "lm_head" in eng.params:                 # 3 embedding rows a step, not the table
+        emb = eng.params["embed"]
+        weight_bytes += (3 - emb.shape[0]) * emb.shape[1] * emb.element_size()
+    cache_bytes = sum(t.numel() * t.element_size() for t in T.tree_leaves(eng.cache))
+    reqs = serve_ex.make_requests(cfg, 6, 12)
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        steps, secs = serve_ex.serve(eng, reqs)
+    peak = torch.cuda.max_memory_allocated() - resident
+    st = _serve_stats(tr, reqs, peak, weight_bytes, cache_bytes)
+    st.update(engine_steps=steps, seconds=secs)
+    # one more decode step under torch.profiler: the card's busy share
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        w0 = time.perf_counter()
+        eng._decode(eng.params, eng.cache, eng.last_tok, eng.lengths)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - w0) * 1e3
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    busy = 0.0
+    end = float("-inf")
+    for lo, hi in sorted(spans):
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    st.update(profiled_step_ms=wall, device_ops=len(spans),
+              device_busy_ms=busy / 1e3 if spans else None)
+    log(f"  {label} one decode step under the profiler: {wall:.3f} ms wall, "
+        + (f"{len(spans)} device ops busy {busy / 1e3:.3f} ms ({busy / 1e3 / wall * 100:.1f} "
+           f"%; idle {100 - busy / 1e3 / wall * 100:.1f} %)" if spans else
+           "device idle share not measured (the profiler returned no device events)"))
+    log(f"  {label} engine (bf16, 3 slots, max_seq 96, 6 requests x 12 tokens): {steps} "
+        f"steps in {secs:.3f} s; decode step {st['decode_ms_mean']:.3f} ms mean, "
+        f"{st['decode_ms_median']:.3f} median, {st['decode_ms_min']:.3f}-"
+        f"{st['decode_ms_max']:.3f} over {st['decode_steps']} steps; prefill "
+        f"{st['prefill_ms_per_token']:.3f} ms a prompt token; {st['tokens_per_s']:.1f} "
+        f"tokens/s; bound {st['decode_bound_ms']:.3f} ms a step ({weight_bytes} B of "
+        f"weights + {cache_bytes} B of cache over {PEAK_HBM_BYTES:.3g} B/s); allocator peak "
+        f"{peak / 2**20:.1f} MiB over {resident / 2**30:.2f} GiB resident; "
+        f"serve/tokens_decoded {reg.snapshot()['counters']['serve/tokens_decoded']}")
+    check(all(len(r.out) == 12 and r.done for r in reqs)
+          and all(0 <= t < cfg.padded_vocab for r in reqs for t in r.out),
+          f"{label}: the engine did not serve 6 requests x 12 valid tokens")
+    check(reg.snapshot()["counters"]["serve/tokens_decoded"] == 72,
+          f"{label}: serve/tokens_decoded is not 72")
+    return st, eng
+
+
 def lm_serving(torch, wrappers: dict, dev) -> dict:
     """Phase 13: the LM serving path and the embedding factorization.
 
@@ -604,10 +808,6 @@ def lm_serving(torch, wrappers: dict, dev) -> dict:
     from repro_torch.models import layers as L
     from repro_torch.models import lm
     from repro_torch.models import transformer as T
-    from repro_torch.obs import MetricsRegistry, Tracer
-    from repro_torch.serving.engine import ServeEngine
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     serve_ex = _load_script("examples_torch/serve_lm.py")
     fact_ex = _load_script("examples_torch/factorize_embeddings.py")
@@ -641,130 +841,6 @@ def lm_serving(torch, wrappers: dict, dev) -> dict:
     check(len(rmses) == 6 and all(np.isfinite(rmses)) and rmses[-1] < rmses[0],
           f"factorize_embeddings' RMSE {rmses}")
 
-    def greedy(cfg, params, tokens, dtype):
-        """The greedy check at ``cfg``'s depth in ``dtype`` compute: the
-        last position's logits of a full forward, of prefill, and of one
-        decode step from a one-shorter prefix (tests/test_models_smoke.py:
-        57-82), with the tokens of all three."""
-        B, S = tokens.shape
-        kw = dict(compute_dtype=dtype)
-        full, _ = T.forward(cfg, params, {"tokens": tokens}, mode="train", **kw)
-        prefill = lm.make_prefill_step(cfg, max_seq=S + 4, **kw)
-        tok, _ = prefill(params, {"tokens": tokens})
-        lg_p, _ = T.forward(cfg, params, {"tokens": tokens}, mode="prefill", **kw)
-        _, cache2 = prefill(params, {"tokens": tokens[:, :S - 1]})
-        lens = torch.full((B,), S - 1, dtype=torch.int32, device=dev)
-        lg_d, _ = T.forward(cfg, params, {"tokens": tokens[:, S - 1:]}, mode="decode",
-                            cache=cache2, lengths=lens, **kw)
-        tok2, _, _ = lm.make_decode_step(cfg, **kw)(params, cache2, tokens[:, S - 1], lens)
-        check(bool(torch.isfinite(full).all()), f"{cfg.name}: non-finite logits")
-        return full[:, -1], lg_p[:, 0], lg_d[:, 0], tok, tok2
-
-    def consistency(cfg, params, label, depths):
-        """Greedy prefill/decode consistency on the first ``depth`` layers
-        for each of ``depths`` and the model's own depth.  In float64
-        compute (no step rounds to float32) the three paths' logits agree
-        within ``F64_TOL`` and their tokens are equal at every depth.  In
-        float32 the same holds within FWD_TOL up to ``STRICT_LAYERS``
-        layers; deeper, the random network amplifies float32 rounding layer
-        by layer (the reference's init gives q and k entries of
-        ~sqrt(D/H)), so there the float32 decode is held to the float64
-        forward no farther than 4 times the float32 forward is (plus
-        FWD_TOL), and its tokens are logged."""
-        rng = np.random.default_rng(0)
-        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 12)).astype(np.int32)).to(dev)
-        grp = params["blocks"][0]["0"]
-        for depth in sorted({d for d in depths if d < cfg.n_layers} | {cfg.n_layers}):
-            c = dataclasses.replace(cfg, n_layers=depth)
-            p = dict(params, blocks=[{"0": {n: t[:depth] for n, t in grp.items()}}])
-            full, lg_p, lg_d, tok, tok2 = greedy(c, p, tokens, torch.float32)
-            full64, lg_p64, lg_d64, tok64, tok2_64 = greedy(c, p, tokens, torch.float64)
-            want = torch.argmax(full, dim=-1).to(torch.int32)
-            want64 = torch.argmax(full64, dim=-1).to(torch.int32)
-            top2 = full.topk(2, dim=-1).values
-            margin = top2[:, 0] - top2[:, 1]
-            d_p = (lg_p - full).abs().max().item()
-            d_d = (lg_d - full).abs().max().item()
-            d64 = max((lg_p64 - full64).abs().max().item(), (lg_d64 - full64).abs().max().item())
-            e_f = (full.double() - full64).abs().max().item()
-            e_d = (lg_d.double() - full64).abs().max().item()
-            out["greedy"].setdefault(label, []).append(
-                {"layers": depth, "prefill_max_abs": d_p, "decode_max_abs": d_d,
-                 "margins": margin.tolist(),
-                 "equal": bool(torch.equal(tok, want) and torch.equal(tok2, want)),
-                 "f64_max_abs": d64, "f64_equal": bool(torch.equal(tok64, want64)
-                                                        and torch.equal(tok2_64, want64)),
-                 "forward_from_f64": e_f, "decode_from_f64": e_d})
-            log(f"  {label}, first {depth} layers, float32 greedy: forward {want.tolist()}, "
-                f"prefill {tok.tolist()}, decode {tok2.tolist()}; top-2 margins "
-                f"{margin.tolist()}; last-position logits max|d| prefill {d_p:.3g}, decode "
-                f"{d_d:.3g}; from the float64 forward: forward {e_f:.3g}, decode {e_d:.3g}; "
-                f"float64: forward {want64.tolist()}, prefill {tok64.tolist()}, decode "
-                f"{tok2_64.tolist()}, max|d| {d64:.3g}")
-            check(torch.equal(tok64, want64) and torch.equal(tok2_64, want64) and d64 <= F64_TOL,
-                  f"{label}: float64 prefill/decode disagree with the forward at {depth} layers")
-            check(e_d <= 4 * e_f + FWD_TOL, f"{label}: the float32 decode is {e_d} from the "
-                  f"float64 forward at {depth} layers, the float32 forward only {e_f}")
-            if depth <= STRICT_LAYERS:
-                check(torch.equal(tok, want) and torch.equal(tok2, want)
-                      and d_p <= FWD_TOL and d_d <= FWD_TOL,
-                      f"{label}: float32 prefill/decode disagree with the forward at {depth} layers")
-
-    def serve_run(cfg, params16, label):
-        weight_bytes = sum(t.numel() * t.element_size() for t in T.tree_leaves(params16)) \
-            - params16["embed"].numel() * params16["embed"].element_size() \
-            + 3 * cfg.d_model * 2                   # 3 embedding rows a step
-        torch.cuda.synchronize()
-        resident = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        tr, reg = Tracer(), MetricsRegistry()
-        eng = ServeEngine(cfg, params16, n_slots=3, max_seq=96, device=dev, tracer=tr,
-                          registry=reg)
-        cache_bytes = sum(t.numel() * t.element_size() for t in T.tree_leaves(eng.cache))
-        reqs = serve_ex.make_requests(cfg, 6, 12)
-        tee = _Tee(sys.stdout)
-        with contextlib.redirect_stdout(tee):
-            steps, secs = serve_ex.serve(eng, reqs)
-        peak = torch.cuda.max_memory_allocated() - resident
-        st = _serve_stats(tr, reqs, peak, weight_bytes, cache_bytes)
-        st.update(engine_steps=steps, seconds=secs)
-        # one more decode step under torch.profiler: the card's busy share
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            w0 = time.perf_counter()
-            eng._decode(eng.params, eng.cache, eng.last_tok, eng.lengths)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - w0) * 1e3
-        spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
-                 if e.device_type == DeviceType.CUDA]
-        busy = 0.0
-        end = float("-inf")
-        for lo, hi in sorted(spans):
-            if hi > end:
-                busy += hi - max(lo, end)
-                end = hi
-        st.update(profiled_step_ms=wall, device_ops=len(spans),
-                  device_busy_ms=busy / 1e3 if spans else None)
-        log(f"  {label} one decode step under the profiler: {wall:.3f} ms wall, "
-            + (f"{len(spans)} device ops busy {busy / 1e3:.3f} ms ({busy / 1e3 / wall * 100:.1f} "
-               f"%; idle {100 - busy / 1e3 / wall * 100:.1f} %)" if spans else
-               "device idle share not measured (the profiler returned no device events)"))
-        log(f"  {label} engine (bf16, 3 slots, max_seq 96, 6 requests x 12 tokens): {steps} "
-            f"steps in {secs:.3f} s; decode step {st['decode_ms_mean']:.3f} ms mean, "
-            f"{st['decode_ms_median']:.3f} median, {st['decode_ms_min']:.3f}-"
-            f"{st['decode_ms_max']:.3f} over {st['decode_steps']} steps; prefill "
-            f"{st['prefill_ms_per_token']:.3f} ms a prompt token; {st['tokens_per_s']:.1f} "
-            f"tokens/s; bound {st['decode_bound_ms']:.3f} ms a step ({weight_bytes} B of bf16 "
-            f"weights + {cache_bytes} B of cache over {PEAK_HBM_BYTES:.3g} B/s); allocator peak "
-            f"{peak / 2**20:.1f} MiB over {resident / 2**30:.2f} GiB resident; "
-            f"serve/tokens_decoded {reg.snapshot()['counters']['serve/tokens_decoded']}")
-        check(all(len(r.out) == 12 and r.done for r in reqs)
-              and all(0 <= t < cfg.padded_vocab for r in reqs for t in r.out),
-              f"{label}: the engine did not serve 6 requests x 12 valid tokens")
-        check(reg.snapshot()["counters"]["serve/tokens_decoded"] == 72,
-              f"{label}: serve/tokens_decoded is not 72")
-        return st
-
     # 13b. phi3-mini-3.8b at full width and depth
     cfg = registry.get_arch("phi3-mini-3.8b").model
     t0 = time.perf_counter()
@@ -776,7 +852,7 @@ def lm_serving(torch, wrappers: dict, dev) -> dict:
         f"{cfg.padded_vocab}; {n_par} parameters stored ({cfg.params_count()} counted), "
         f"{n_par * 4 / 1e9:.2f} GB float32, drawn in {time.perf_counter() - t0:.2f} s")
     out["greedy"] = {}
-    consistency(cfg, params, "phi3-mini-3.8b", (1, 2, 4, 8, 16))
+    _consistency(torch, dev, cfg, params, "phi3-mini-3.8b", (1, 2, 4, 8, 16), out["greedy"])
 
     # attention_chunked against attention_full on a 2048-token prompt: the
     # first layer's q, k, v in float32
@@ -815,7 +891,8 @@ def lm_serving(torch, wrappers: dict, dev) -> dict:
     log(f"  bf16 prefill of 2048 tokens (chunked attention, 512 x 512): {ms_pre:.2f} ms "
         f"({2048 / ms_pre * 1e3:.0f} tokens/s)")
     del cache
-    out["serve"]["phi3-mini-3.8b"] = serve_run(cfg, params16, "phi3-mini-3.8b")
+    out["serve"]["phi3-mini-3.8b"] = _serve_run(torch, dev, serve_ex, cfg, params16,
+                                                "phi3-mini-3.8b")[0]
     del params16
     torch.cuda.empty_cache()
 
@@ -827,10 +904,11 @@ def lm_serving(torch, wrappers: dict, dev) -> dict:
         f"{cfg_q.d_model}, {cfg_q.n_heads} heads (GQA kv {cfg_q.n_kv}) x {cfg_q.d_head}, "
         f"qk-norm, tied head, d_ff={cfg_q.d_ff}, vocab {cfg_q.vocab} -> {cfg_q.padded_vocab}; "
         f"{sum(t.numel() for t in T.tree_leaves(pq))} parameters stored")
-    consistency(cfg_q, pq, "qwen3-4b", (1, 2, 4))
+    _consistency(torch, dev, cfg_q, pq, "qwen3-4b", (1, 2, 4), out["greedy"])
     pq16 = lm.cast_params(pq)
     del pq
-    out["serve"]["qwen3-4b"] = serve_run(cfg_q, pq16, f"qwen3-4b ({QWEN3_LAYERS} layers)")
+    out["serve"]["qwen3-4b"] = _serve_run(torch, dev, serve_ex, cfg_q, pq16,
+                                          f"qwen3-4b ({QWEN3_LAYERS} layers)")[0]
     del pq16
     torch.cuda.empty_cache()
 
@@ -917,6 +995,108 @@ def lm_serving(torch, wrappers: dict, dev) -> dict:
         del A, B, x1, x0
     del emb, r, rt, init
     torch.cuda.empty_cache()
+    return out
+
+
+#: phase 14's models, random weights from seed 0: (arch, layers run, or None
+#: for all, depths of the greedy check besides the model's own).  moonshot's
+#: 28.06 B parameters are 112 GB in float32, so it runs 8 of its 48 layers
+PHASE14 = (("olmoe-1b-7b", None, (1, 2, 4, 8)),
+           ("recurrentgemma-2b", None, (1, 2, 3, 4, 8, 16)),
+           ("rwkv6-7b", None, (1, 2, 4, 8, 16)),
+           ("moonshot-v1-16b-a3b", 8, (1, 2, 4)))
+#: the models whose sequential scans phase 14 times on a 512-token bf16 prefill
+PREFILL_512 = ("recurrentgemma-2b", "rwkv6-7b")
+
+
+def moe_and_recurrent(torch, dev) -> dict:
+    """Phase 14: the MoE and recurrent families, one model at a time.
+
+    For each model of ``PHASE14`` at full width: the greedy check of phase
+    13 in float32 and float64 at each of its depths and its own (a MoE at a
+    capacity that drops nothing, ``_no_drop``; at the model's own capacity,
+    prefill against the forward, which route the same B*S tokens); the
+    engine on the example's traffic in bf16 with its numbers; for
+    ``PREFILL_512`` a bf16 prefill of 512 tokens, timed.
+    """
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    from repro_torch.models import transformer as T
+
+    serve_ex = _load_script("examples_torch/serve_lm.py")
+    out = {"serve": {}, "greedy": {}, "f64_layers": {}, "prefill_512_ms": {},
+           "own_capacity_prefill_max_abs": {}, "seconds": {}}
+    for arch, layers, depths in PHASE14:
+        t0 = time.perf_counter()
+        full = registry.get_arch(arch).model
+        cfg = full if layers is None else dataclasses.replace(full, n_layers=layers)
+        params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        n_par = sum(t.numel() for t in T.tree_leaves(params))
+        cut = "" if layers is None else f" cut to {layers} of {full.n_layers} layers"
+        moe = "" if cfg.moe is None else (
+            f", MoE {cfg.moe.n_experts} experts top-{cfg.moe.top_k} x d_ff {cfg.d_ff}, "
+            f"capacity factor {cfg.moe.capacity_factor}")
+        log(f"phase 14 {arch}{cut}: pattern {T.layer_pattern(cfg)[:len(cfg.block_pattern)]} "
+            f"x {cfg.n_layers} layers, groups {T.scan_groups(cfg)}, d={cfg.d_model}, d_rnn "
+            f"{cfg.d_rnn}, window {cfg.sliding_window}{moe}, vocab {cfg.vocab} -> "
+            f"{cfg.padded_vocab}; {n_par} parameters stored ({cfg.params_count()} counted), "
+            f"{n_par * 4 / 1e9:.2f} GB float32, drawn in {time.perf_counter() - t0:.2f} s")
+
+        # (a), (b): the greedy check in float32 and float64 by depth
+        ccfg = _no_drop(cfg)
+        if cfg.moe is not None:
+            log(f"  {arch}: the greedy check runs at capacity factor "
+                f"{ccfg.moe.capacity_factor} (no pair drops)")
+        out["f64_layers"][arch] = _consistency(torch, dev, ccfg, params, arch, depths,
+                                               out["greedy"])
+        log(f"  {arch}: the float64 check reached {out['f64_layers'][arch]} of "
+            f"{cfg.n_layers} layers")
+        if cfg.moe is not None:
+            rng = np.random.default_rng(0)
+            tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 12)).astype(np.int32)).to(dev)
+            d = {}
+            for dt in (torch.float32, torch.float64):
+                lg_f, _ = T.forward(cfg, params, {"tokens": tokens}, mode="train", compute_dtype=dt)
+                lg_p, _ = T.forward(cfg, params, {"tokens": tokens}, mode="prefill",
+                                    compute_dtype=dt)
+                d[str(dt).split(".")[-1]] = (lg_p[:, 0] - lg_f[:, -1]).abs().max().item()
+            out["own_capacity_prefill_max_abs"][arch] = d
+            n = tokens.numel()
+            cap = int(cfg.moe.capacity_factor * n * cfg.moe.top_k / cfg.moe.n_experts) or 1
+            log(f"  {arch} at its own capacity ({cap} a bucket for {n} tokens): prefill vs "
+                f"forward last-position logits max|d| "
+                f"float32 {d['float32']:.3g}, float64 {d['float64']:.3g}")
+            check(d["float64"] <= F64_TOL, f"{arch}: prefill disagrees with the forward at "
+                  f"the model's own capacity: {d}")
+
+        # (c): the engine, bf16, on the example's traffic
+        out["serve"][arch], eng = _serve_run(torch, dev, serve_ex, cfg, params, arch + cut)
+        del params
+        torch.cuda.empty_cache()
+
+        # (d): a bf16 prefill of 512 tokens through the sequential scans
+        if arch in PREFILL_512:
+            rng = np.random.default_rng(1)
+            toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 512)).astype(np.int32)).to(dev)
+            prefill = lm.make_prefill_step(cfg)
+            ms = cuda_ms(torch, lambda: prefill(eng.params, {"tokens": toks}), reps=1)
+            tok, cache = prefill(eng.params, {"tokens": toks})
+            check(0 <= int(tok[0]) < cfg.padded_vocab and all(
+                bool(torch.isfinite(t.float()).all()) for t in T.tree_leaves(cache)),
+                f"{arch}: the bf16 512-token prefill gave no valid token or a non-finite cache")
+            out["prefill_512_ms"][arch] = ms
+            log(f"  {arch} bf16 prefill of 512 tokens: {ms:.2f} ms ({512 / ms * 1e3:.0f} "
+                f"tokens/s)")
+            del cache
+        del eng
+        torch.cuda.empty_cache()
+        out["seconds"][arch] = time.perf_counter() - t0
+        log(f"phase 14 {arch}: {out['seconds'][arch]:.1f} s")
     return out
 
 
@@ -2497,6 +2677,13 @@ def main() -> int:
             k["max_abs_err_lm"] = e
             k["max_abs_err"] = max(k["max_abs_err"], e)
     log("phase 13 serving: " + json.dumps(lmr["serve"]))
+
+    # -- 14. the MoE and recurrent families -------------------------------------------
+    t14 = time.perf_counter()
+    fam = moe_and_recurrent(torch, dev)
+    log(f"phase 14 took {time.perf_counter() - t14:.1f} s")
+    log("phase 14 serving: " + json.dumps({k: fam[k] for k in (
+        "serve", "prefill_512_ms", "f64_layers", "own_capacity_prefill_max_abs", "seconds")}))
 
     for k in kernels:
         k["launches_mesh"] = launches_mesh.get(k["name"], 0)

@@ -3,13 +3,15 @@ batching engine (slot admission, ragged lengths, KV cache reuse), on the
 card (the port of ``examples/serve_lm.py``).
 
     PYTHONPATH=src python examples_torch/serve_lm.py --arch phi3-mini-3.8b
+    PYTHONPATH=src python examples_torch/serve_lm.py --arch olmoe-1b-7b
     PYTHONPATH=src python examples_torch/serve_lm.py --device cpu
 
 The model is the architecture's smoke config with random weights drawn
-from seed 0; the engine runs in bf16.  The dense-attention architectures
-serve; MoE, RG-LRU and RWKV6 blocks raise until ROADMAP item 13b, and the
-stub-frontend architectures (musicgen, internvl2) take embeddings, not
-tokens.  ``--device cpu`` runs the plain PyTorch path.
+from seed 0; the engine runs in bf16.  Every token architecture serves:
+dense attention, MoE (olmoe, moonshot), RG-LRU with local attention
+(recurrentgemma) and RWKV6; the stub-frontend architectures (musicgen,
+internvl2) take embeddings, not tokens.  ``--device cpu`` runs the plain
+PyTorch path.
 """
 import argparse
 import time

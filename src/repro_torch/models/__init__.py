@@ -1,3 +1,3 @@
-"""LM model stack: layers, attention, the decoder assembly and the
-prefill/decode steps (the reference's ``models/``).  MoE, RG-LRU and RWKV6
-carry their parameter shapes only; their forwards are ROADMAP item 13b."""
+"""LM model stack: layers, attention, the MoE FFN, the RG-LRU and RWKV6
+blocks, the decoder assembly and the prefill/decode steps (the reference's
+``models/``)."""

@@ -14,13 +14,14 @@ Modes:
 - decode  : one token per call against the caches, written in place.
 
 The reference's decode returns fresh cache arrays; here ``forward`` in
-decode mode writes the new token's keys and values into the cache it was
-given (stacked or per-layer) and returns that cache.  A write at a position
-past the cache's end is dropped, as JAX's ``.at[].set`` drops it.
+decode mode writes the new token's keys and values, and the recurrent
+blocks' new states, into the cache it was given (stacked or per-layer) and
+returns that cache.  A write at a position past the cache's end is
+dropped, as JAX's ``.at[].set`` drops it.
 
-Only the attention block runs here: a ``moe``, ``rglru`` or ``rwkv`` block
-raises ``NotImplementedError`` (ROADMAP item 13b); a ``mesh`` raises until
-the mesh-serving slice (item 13d).
+Block kinds: ``attn`` (with a dense or MoE FFN), ``rglru`` (the Griffin
+recurrent branch and the same FFN) and ``rwkv`` (time and channel mix).  A
+``mesh`` raises until the mesh-serving slice (item 13d).
 """
 from __future__ import annotations
 
@@ -36,7 +37,6 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 
-_BLOCK_13B = "ROADMAP item 13b (MoE, RG-LRU and RWKV6 serving)"
 _MESH_13D = "ROADMAP item 13d (mesh serving)"
 
 
@@ -172,6 +172,12 @@ def _shape_tree_map(fn: Callable, shapes, name: Optional[str] = None):
         return [_shape_tree_map(fn, v, name) for v in shapes]
     return fn(name, shapes[0])
 
+
+#: the leaves ``forward`` reads in float32 (float64 in a float64 forward)
+#: whatever the compute dtype: the norm scales, RG-LRU's ``lam``, RWKV6's
+#: ``w0``, ``u`` and group-norm affine
+FLOAT32_LEAVES = ("ln1", "ln2", "final_norm", "qnorm", "knorm", "lam", "w0", "u",
+                  "ln_w", "ln_b")
 
 _ZERO_INIT = ("ln1", "ln2", "final_norm", "qnorm", "knorm", "ln_w",
               "b_in", "b_out", "bq", "bk", "bv", "ln_b", "u")
@@ -337,7 +343,7 @@ def _proj(x, w):
 def _mlp_forward(cfg: ModelConfig, p, x):
     dt = x.dtype
     if cfg.moe is not None:
-        raise NotImplementedError(f"the MoE FFN is {_BLOCK_13B}")
+        return moe_mod.moe_ffn(p, x, cfg.moe)
     if cfg.mlp == "swiglu":
         return L.swiglu_mlp(x, p["w_gate"].to(dt), p["w_up"].to(dt), p["w_down"].to(dt))
     if cfg.mlp == "geglu":
@@ -431,12 +437,38 @@ def _decode_ring(q, kc, vc, posbuf, lengths):
     return out.reshape(b, h, dh)
 
 
-def _rglru_forward(*_, **__):
-    raise NotImplementedError(f"the RG-LRU block is {_BLOCK_13B}")
+def _write_state(cache, new):
+    """Decode: the block's new states copied into the cache tensors it was
+    given (views of a stacked cache, or a per-layer layout's own)."""
+    for name, t in new.items():
+        cache[name].copy_(t)
+    return cache
 
 
-def _rwkv_forward(*_, **__):
-    raise NotImplementedError(f"the RWKV6 block is {_BLOCK_13B}")
+def _rglru_forward(cfg, p, x, positions, cache, *, mode, **_):
+    xn = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    y, nc = rglru_mod.recurrent_branch(p, xn, cache=cache if mode == "decode" else None)
+    x = x + y
+    xn2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    x = x + _mlp_forward(cfg, p, xn2)
+    if mode == "decode":
+        return x, _write_state(cache, nc)
+    return x, nc if mode == "prefill" else {}
+
+
+def _rwkv_forward(cfg, p, x, positions, cache, *, mode, **_):
+    decode = mode == "decode"
+    xn = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    y, ntc = rwkv_mod.time_mix(
+        p, xn, cache={"s": cache["s"], "x_prev": cache["x_prev_t"]} if decode else None)
+    x = x + y
+    xn2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    y2, ncc = rwkv_mod.channel_mix(p, xn2, cache={"x_prev": cache["x_prev_c"]} if decode else None)
+    x = x + y2
+    nc = {"s": ntc["s"], "x_prev_t": ntc["x_prev"], "x_prev_c": ncc["x_prev"]}
+    if decode:
+        return x, _write_state(cache, nc)
+    return x, nc if mode == "prefill" else {}
 
 
 _BLOCK_FWD = {"attn": _attn_forward, "rglru": _rglru_forward, "rwkv": _rwkv_forward}

@@ -12,6 +12,14 @@ for every slot, so an idle slot's length keeps growing, and a request
 admitted into a slot that sat idle starts at that nonzero length; a cache
 write past ``max_seq`` is dropped.
 
+Also kept, and not reset when a request is admitted into a slot: an
+``rglru`` or ``rwkv`` slot's recurrent state and a window cache's ``pos``
+(only the slot's length goes back to 0).  Every decode call steps every
+slot, the idle ones and, while a request is prefilled, the others too, so
+their recurrent states advance on their last tokens; and in a MoE their
+tokens are routed with the active ones and take expert capacity from them
+(the capacity is the reference's arithmetic on ``n_slots`` tokens).
+
 The loop reports through ``repro_torch.obs``: per-request prefill and
 per-step decode run in ``serve.prefill`` / ``serve.decode_step`` spans
 (each ends on a host read of the step's tokens, so its time covers the
@@ -19,9 +27,12 @@ card's work), an ``active_slots`` gauge tracks occupancy, and
 ``serve/tokens_decoded`` counts throughput.
 
 The engine computes in bf16, as the reference's does.  Its float32
-weights are cast to bf16 once, and its cache is kept in bf16: the
-reference's float32 cache holds keys and values that were bf16 before
-they were written, so both are bit-equal to the reference's.
+weights are cast to bf16 once, except the leaves the forward reads in
+float32 (``transformer.FLOAT32_LEAVES``: norm scales, ``lam``, ``w0``,
+``u``), which stay float32 as the reference's are read.  Its cache is kept
+in bf16 where the reference's is float32 (the recurrent states ``h`` and
+``s`` are float32 in both): those entries were bf16 before they were
+written, so both caches hold the same values.
 """
 from __future__ import annotations
 
@@ -56,7 +67,8 @@ class ServeEngine:
         dev = resolve_device(device)
         self.cfg = cfg
         self.params = T.tree_map(
-            lambda _, p: p.to(dev, torch.bfloat16) if p.dtype == torch.float32 else p.to(dev),
+            lambda n, p: p.to(dev, torch.bfloat16)
+            if p.dtype == torch.float32 and n not in T.FLOAT32_LEAVES else p.to(dev),
             params)
         self.n_slots = n_slots
         self.max_seq = max_seq

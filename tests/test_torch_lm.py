@@ -6,8 +6,15 @@ Inputs come from numpy seeds; the reference's weights are injected through
 (``tests/test_attention.py``), ``rope`` at 1e-4; whole forwards in float32
 compute at 1e-4 absolute and relative (two or three layers of float32
 products summed in another order; the largest difference seen over these
-configs is 4.1e-5, on a cached key).
+configs is 4.1e-5, on a cached key), the MoE, RG-LRU and RWKV6 archs
+included (their blocks are held alone in ``tests/test_torch_rnn_moe.py``).
+
+A MoE's capacity is the reference's arithmetic on the token count, so a
+decode step of B tokens drops other pairs than a forward of B*S tokens;
+the consistency tests run MoE configs at ``capacity_factor =
+ceil(E / k)``, where no pair drops (``_no_drop``).
 """
+import math
 import dataclasses
 
 import numpy as np
@@ -34,6 +41,16 @@ DENSE = ["phi3-mini-3.8b", "qwen3-4b", "qwen1.5-4b", "mistral-large-123b",
          "musicgen-medium", "internvl2-26b"]
 OTHER = {"olmoe-1b-7b": "moe", "moonshot-v1-16b-a3b": "moe",
          "recurrentgemma-2b": "rglru", "rwkv6-7b": "rwkv"}
+TOKEN = DENSE + sorted(OTHER)
+
+
+def _no_drop(cfg):
+    """``cfg`` with a capacity at which no MoE pair drops (capacity >= the
+    token count); other configs as they are."""
+    if cfg.moe is None:
+        return cfg
+    cf = float(math.ceil(cfg.moe.n_experts / cfg.moe.top_k))
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
 
 
 def _np(a):
@@ -255,11 +272,26 @@ def _inputs(cfg, B, S, seed):
     return {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
 
 
-def _pair(arch, seed=1, **replace):
+def _ref_params(rcfg, seed):
+    """The reference's ``init_params`` tree with each RG-LRU ``lam`` drawn
+    by its recipe from ``seed`` (its own draw is keyed by ``hash('lam')``,
+    which changes from process to process)."""
+    def fix(path, a):
+        if path[-1].key != "lam":
+            return a
+        un = jax.random.uniform(jax.random.PRNGKey(seed + 1), a.shape, jnp.float32, 0.9, 0.999)
+        lam = -jnp.log(un) / 8.0
+        return jnp.log(jnp.expm1(jnp.maximum(lam, 1e-6))).astype(a.dtype)
+    return jax.tree_util.tree_map_with_path(fix, RT.init_params(rcfg, jax.random.PRNGKey(seed)))
+
+
+def _pair(arch, seed=1, no_drop=False, **replace):
     rcfg, cfg = ref_registry.smoke_config(arch), registry.smoke_config(arch)
     if replace:
         rcfg, cfg = dataclasses.replace(rcfg, **replace), dataclasses.replace(cfg, **replace)
-    rp = RT.init_params(rcfg, jax.random.PRNGKey(seed))
+    if no_drop:
+        rcfg, cfg = _no_drop(rcfg), _no_drop(cfg)
+    rp = _ref_params(rcfg, seed)
     return rcfg, rp, cfg, T.params_from_numpy(cfg, jax.tree.map(np.asarray, rp), "cpu")
 
 
@@ -276,7 +308,7 @@ def _close_trees(port, ref):
         _close(a, b)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", TOKEN)
 @pytest.mark.parametrize("mode", ["train", "prefill", "decode"])
 def test_forward_matches_reference_f32(arch, mode):
     rcfg, rp, cfg, pp = _pair(arch)
@@ -297,7 +329,7 @@ def test_forward_matches_reference_f32(arch, mode):
     short = {k: v[:, :S - 1] for k, v in inp.items()}
     _, rc = RT.forward(rcfg, rp, {k: jnp.asarray(v) for k, v in short.items()},
                        mode="prefill", **kw)
-    rc = _ref_pad(rc, S + 4)
+    rc = _ref_pad(rc, S + 4, cfg.sliding_window)
     _, pc = lm.make_prefill_step(cfg, max_seq=S + 4, compute_dtype=torch.float32)(
         pp, {k: _t(v) for k, v in short.items()})
     _close_trees(pc, rc)
@@ -313,23 +345,25 @@ def test_forward_matches_reference_f32(arch, mode):
     _close_trees(pc, rc2)                   # written in place
 
 
-def _ref_pad(cache, max_seq):
-    """The reference's ``make_prefill_step`` padding, on a float32 prefill."""
+def _ref_pad(cache, max_seq, window=None):
+    """The reference's ``make_prefill_step`` padding, on a float32 prefill
+    (a window's ring cache is not padded)."""
     def fix(path, leaf):
-        if path[-1].key in ("k", "v") and max_seq > leaf.shape[2]:
+        if path[-1].key in ("k", "v") and not window and max_seq > leaf.shape[2]:
             return jnp.pad(leaf, [(0, 0), (0, 0), (0, max_seq - leaf.shape[2])]
                            + [(0, 0)] * (leaf.ndim - 3))
         return leaf
     return jax.tree_util.tree_map_with_path(fix, cache)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", TOKEN)
 def test_greedy_prefill_and_decode_consistent_with_forward(arch):
     """The port's counterpart of tests/test_models_smoke.py:57-82, in
     float32 compute: the argmax of a full forward at the last position
     equals prefill's token and one decode step's from a shorter prefix,
-    and all three equal the reference's float32 tokens."""
-    rcfg, rp, cfg, pp = _pair(arch)
+    and all three equal the reference's float32 tokens (MoE at a capacity
+    that drops nothing)."""
+    rcfg, rp, cfg, pp = _pair(arch, no_drop=True)
     B, S = 2, 12
     inp = {k: _t(v) for k, v in _inputs(cfg, B, S, seed=3).items()}
     f32 = dict(compute_dtype=torch.float32)
@@ -354,7 +388,8 @@ F64_TOL = 1e-10
 
 @pytest.mark.parametrize("arch,window,S", [
     ("phi3-mini-3.8b", None, 12), ("qwen3-4b", None, 12), ("phi3-mini-3.8b", 5, 12),
-    ("qwen3-4b", None, 273)])
+    ("qwen3-4b", None, 273), ("olmoe-1b-7b", None, 12), ("moonshot-v1-16b-a3b", None, 12),
+    ("recurrentgemma-2b", 8, 12), ("recurrentgemma-2b", 8, 273), ("rwkv6-7b", None, 12)])
 def test_float64_prefill_and_decode_equal_forward_at_depth(arch, window, S):
     """In float64 compute no step rounds to float32 (``layers.upcast``), so
     at 8 layers prefill's and one decode step's last-position logits equal
@@ -362,8 +397,11 @@ def test_float64_prefill_and_decode_equal_forward_at_depth(arch, window, S):
     equal: the deep greedy check of ``chip_smoke.py`` rests on this.  The
     cases cover the ring decode of a sliding window and, at 272 tokens,
     ``attention_chunked`` in prefill (chunks of 21 and, for the cache of
-    the 272-token prefix, 16)."""
-    cfg = dataclasses.replace(registry.smoke_config(arch), n_layers=8, sliding_window=window)
+    the 272-token prefix, 16); the RG-LRU and RWKV6 states (recurrentgemma
+    at 8 layers runs both of its scan groups) and the MoE FFN at a capacity
+    that drops nothing."""
+    cfg = _no_drop(dataclasses.replace(registry.smoke_config(arch), n_layers=8,
+                                       sliding_window=window))
     params = T.init_params(cfg, torch.Generator().manual_seed(0))
     tokens = _t(np.random.default_rng(7).integers(0, cfg.vocab, (2, S)).astype(np.int32))
 
@@ -428,18 +466,22 @@ def test_sliding_window_prefill_and_ring_decode_match_reference():
     _close(out[:, 0], full[:, -1].numpy())
 
 
-def test_per_layer_cache_equals_stacked():
-    cfg = registry.smoke_config("mistral-large-123b")
+def _stacked_and_per_layer_decode(arch, S):
+    """Two decode steps on a stacked prefill cache and on a per-layer view
+    of an equal one: the same tokens, and every leaf of the two caches
+    equal afterwards (the per-layer decode writes through its views)."""
+    cfg = registry.smoke_config(arch)
     pp = T.init_params(cfg, torch.Generator().manual_seed(2))
-    inp = {k: _t(v) for k, v in _inputs(cfg, 2, 7, seed=1).items()}
-    prefill = lm.make_prefill_step(cfg, max_seq=10, compute_dtype=torch.float32)
+    inp = {k: _t(v) for k, v in _inputs(cfg, 2, S, seed=1).items()}
+    prefill = lm.make_prefill_step(cfg, max_seq=S + 3, compute_dtype=torch.float32)
     _, stacked = prefill(pp, inp)
     _, other = prefill(pp, inp)
     per_layer = T.unstack_cache(cfg, other)
-    assert isinstance(per_layer["blocks"][0], list) and len(per_layer["blocks"][0]) == 3
+    assert [len(g) for g in per_layer["blocks"]] == [r for _, r in T.scan_groups(cfg)]
     dec = lm.make_decode_step(cfg, compute_dtype=torch.float32)
-    lengths = torch.tensor([7, 5], dtype=torch.int32)
+    lengths = torch.tensor([S, S - 2], dtype=torch.int32)
     tok = torch.tensor([3, 4], dtype=torch.int32)
+    before = T.tree_map(lambda _, t: t.clone(), stacked)
     for _ in range(2):
         a, stacked, _ = dec(pp, stacked, tok, lengths)
         b, per_layer, lengths = dec(pp, per_layer, tok, lengths)
@@ -447,6 +489,25 @@ def test_per_layer_cache_equals_stacked():
         tok = a
     for x, y in zip(T.tree_leaves(stacked), T.tree_leaves(other)):
         assert torch.equal(x, y)             # the per-layer leaves are views of ``other``
+    return before, stacked
+
+
+@pytest.mark.parametrize("arch", sorted(OTHER))
+def test_per_layer_cache_equals_stacked_for_every_block_kind(arch):
+    """The recurrent states are written in place: every state leaf changed
+    from what prefill gave."""
+    before, after = _stacked_and_per_layer_decode(arch, 9)
+    names = T.tree_leaves(T.tree_map(lambda n, _: n, after))
+    assert {"moe": {"k", "v"}, "rglru": {"h", "conv", "k", "v", "pos"},
+            "rwkv": {"s", "x_prev_t", "x_prev_c"}}[OTHER[arch]] == set(names)
+    for name, b, a in zip(names, T.tree_leaves(before), T.tree_leaves(after)):
+        if name in ("h", "s", "conv", "x_prev_t", "x_prev_c"):
+            assert not torch.equal(a, b), name
+
+
+def test_per_layer_cache_equals_stacked():
+    cfg = registry.smoke_config("mistral-large-123b")
+    _stacked_and_per_layer_decode("mistral-large-123b", 7)
     fresh = T.init_cache(cfg, 2, 10, torch.float32, stacked=False, device="cpu")
     assert [tuple(t.shape) for t in T.tree_leaves(fresh)] == [(2, 10, 2, 16)] * 6
     ref = jax.eval_shape(lambda: RT.init_cache(ref_registry.smoke_config("mistral-large-123b"),
@@ -462,14 +523,6 @@ def test_caches_of_every_block_kind_match_reference(arch):
         r = jax.eval_shape(lambda: RT.init_cache(rcfg, 3, 20, jnp.bfloat16, stacked=stacked))
         assert [(tuple(t.shape), str(t.dtype).split(".")[-1]) for t in T.tree_leaves(c)] == \
             [(t.shape, str(t.dtype)) for t in jax.tree.leaves(r)]
-
-
-@pytest.mark.parametrize("arch", sorted(OTHER))
-def test_non_attention_blocks_raise_with_their_roadmap_item(arch):
-    cfg = registry.smoke_config(arch)
-    pp = T.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="13b"):
-        T.forward(cfg, pp, {"tokens": torch.zeros((1, 4), dtype=torch.int32)}, mode="train")
 
 
 def test_mesh_paths_raise_with_their_roadmap_item():

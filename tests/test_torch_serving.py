@@ -8,11 +8,12 @@ so the tests compare them call by call, every slot of every call.  Each
 bf16 layer of the port is bit-equal to the reference's layer run alone,
 but XLA fuses the reference's layer loop and drops some intermediate bf16
 roundings there, so the two engines' bf16 logits differ by a few ulps
-(up to 0.164 on logits below 3 over these configs' decode calls).  So the
-logits must agree within ``LOGIT_TOL``, and where the greedy tokens differ,
-the reference's top-2 margin at that call must be under ``NEAR_TIE``; the
-test stops comparing that slot until its next request (its sequence then
-legitimately differs), and holds each arch's flips to the list it shows.
+(up to 0.164 on logits below 3 over the dense configs' decode calls).  So
+the logits must agree within ``LOGIT_TOL``, and where the greedy tokens
+differ, the reference's top-2 margin at that call must be under
+``NEAR_TIE``; the test then stops comparing what that flip makes differ
+(``_compare_calls``' rule per block kind), and holds each arch's flips to
+the list it shows.
 """
 import contextlib
 import importlib.util
@@ -35,23 +36,34 @@ from repro.obs.trace import Tracer as RefTracer  # noqa: E402
 from repro.serving import engine as ref_engine  # noqa: E402
 
 from repro_torch.configs import registry  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.obs import MetricsRegistry, Tracer  # noqa: E402
 from repro_torch.serving import engine  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
-TOKEN_ARCHS = ["phi3-mini-3.8b", "qwen3-4b", "qwen1.5-4b", "mistral-large-123b"]
+TOKEN_ARCHS = ["phi3-mini-3.8b", "qwen3-4b", "qwen1.5-4b", "mistral-large-123b",
+               "olmoe-1b-7b", "moonshot-v1-16b-a3b", "recurrentgemma-2b", "rwkv6-7b"]
 #: a flip is accepted where the reference's top-2 margin is under 1/16:
 #: 8 bf16 ulps at logits in [1, 2)
 NEAR_TIE = 0.0625
 #: bf16 logits of the two engines on a slot whose tokens still agree
 LOGIT_TOL = 0.25
+#: (LOGIT_TOL, NEAR_TIE) for recurrentgemma, whose logits swing with an ulp
+#: of its RG-LRU input and MQA window attention: over this traffic the
+#: reference's own jitted and eager engines differ by up to 0.32 on slots
+#: that never flipped and flip at margins up to 0.07 (0.61 with another of
+#: its per-process ``lam`` draws); the port against the jitted reference
+#: shows 0.293 and 0.094
+TOLS_ARCH = {"recurrentgemma-2b": (0.375, 0.125)}
 #: the near-tie flips each arch's run shows: (decode call, slot, request);
 #: every margin is at most 0.039, and 0.0 at two of mistral-large's calls,
 #: where the reference's two largest logits are equal
 FLIPS = {"phi3-mini-3.8b": [(8, 0, 0), (57, 0, 3)], "qwen3-4b": [],
          "qwen1.5-4b": [(51, 2, 5)],
-         "mistral-large-123b": [(17, 2, 2), (28, 0, 0), (29, 1, 1), (50, 2, 5), (62, 0, 3)]}
+         "mistral-large-123b": [(17, 2, 2), (28, 0, 0), (29, 1, 1), (50, 2, 5), (62, 0, 3)],
+         "olmoe-1b-7b": [(15, 2, 2)], "moonshot-v1-16b-a3b": [],
+         "recurrentgemma-2b": [(13, 0, 0), (13, 2, None), (14, 1, 1)], "rwkv6-7b": [(35, 0, 3)]}
 FACTOR_TOL = 2e-3
 
 
@@ -72,11 +84,24 @@ def _requests(cls, cfg, n=6, new=12, seed=0):
     return out
 
 
+def _ref_params(rcfg, seed):
+    """The reference's ``init_params`` tree with each RG-LRU ``lam`` drawn
+    by its recipe from ``seed`` (its own draw is keyed by ``hash('lam')``,
+    which changes from process to process)."""
+    def fix(path, a):
+        if path[-1].key != "lam":
+            return a
+        un = jax.random.uniform(jax.random.PRNGKey(seed + 1), a.shape, jnp.float32, 0.9, 0.999)
+        lam = -jnp.log(un) / 8.0
+        return jnp.log(jnp.expm1(jnp.maximum(lam, 1e-6))).astype(a.dtype)
+    return jax.tree_util.tree_map_with_path(fix, RT.init_params(rcfg, jax.random.PRNGKey(seed)))
+
+
 def _engines(arch, n_slots, max_seq, seed=0):
     """Both engines on the reference's weights, their decode calls
     recorded: (each slot's request, inputs, lengths, next tokens, logits)."""
     rcfg, cfg = ref_registry.smoke_config(arch), registry.smoke_config(arch)
-    rp = RT.init_params(rcfg, jax.random.PRNGKey(seed))
+    rp = _ref_params(rcfg, seed)
     pp = T.params_from_numpy(cfg, jax.tree.map(np.asarray, rp), "cpu")
     re_ = ref_engine.ServeEngine(rcfg, rp, n_slots=n_slots, max_seq=max_seq)
     pe = engine.ServeEngine(cfg, pp, n_slots=n_slots, max_seq=max_seq, device="cpu")
@@ -97,8 +122,10 @@ def _engines(arch, n_slots, max_seq, seed=0):
 
     def port_decode(p, c, t, l):
         rec = (rids(pe), t.numpy().copy(), l.numpy().copy())
-        # the same call's logits (it writes the same cache rows as pdec)
-        lg = T.forward(cfg, p, {"tokens": t[:, None]}, mode="decode", cache=c,
+        # the same call's logits, on a copy of the cache (a decode writes
+        # its cache in place, and a recurrent state must step once)
+        lg = T.forward(cfg, p, {"tokens": t[:, None]}, mode="decode",
+                       cache=T.tree_map(lambda _, a: a.clone(), c),
                        lengths=l)[0][:, 0].float().numpy()
         n, c2, l2 = pdec(p, c, t, l)
         plog.append(rec + (n.numpy().copy(), lg))
@@ -108,33 +135,49 @@ def _engines(arch, n_slots, max_seq, seed=0):
     return (rcfg, re_, rlog), (cfg, pe, plog)
 
 
-def _compare_calls(rlog, plog, n_slots):
+def _resync_rule(cfg) -> str:
+    """What a flip makes incomparable, by block kind: ``"admit"`` the slot,
+    until a new request is admitted into it at length 0 (both engines then
+    rewrite its attention rows from the start); ``"never"`` the slot for
+    good (an ``rglru``/``rwkv`` state is never reset); ``"all"`` every slot
+    from the next call on (a MoE's slots share the experts' capacity)."""
+    if cfg.moe is not None:
+        return "all"
+    return "never" if {"rglru", "rwkv"} & set(cfg.block_pattern) else "admit"
+
+
+def _compare_calls(rlog, plog, n_slots, rule="admit", tols=(LOGIT_TOL, NEAR_TIE)):
     """Call by call, every slot: the same request and length, the same
-    input, logits within ``LOGIT_TOL``, the same greedy token unless the
-    reference's top-2 margin is under ``NEAR_TIE``.  After a flip the
-    slot's sequence legitimately differs, so its inputs and logits are
-    compared again once a new request is admitted into it at length 0
-    (both engines then rewrite its rows from the start).  Returns the flips
-    (call, slot, request, margin)."""
+    input, logits within ``tols[0]``, the same greedy token unless the
+    reference's top-2 margin is under ``tols[1]``.  After a flip the
+    sequence legitimately differs where ``rule`` (``_resync_rule``) says.
+    Returns the flips (call, slot, request, margin) and the requests that
+    sat in a slot while it was not compared."""
     assert len(rlog) == len(plog) > 0
-    diverged, flips, before = set(), [], [None] * n_slots
+    logit_tol, near_tie = tols
+    diverged, flips, before, skipped = set(), [], [None] * n_slots, set()
     for k, ((rr, rt, rl, rn, rlg), (pr, pt, pl, pn, plg)) in enumerate(zip(rlog, plog)):
         assert rr == pr and np.array_equal(rl, pl), (k, rr, pr, rl, pl)
+        flipped = set()
         for s in range(n_slots):
-            if s in diverged and rr[s] is not None and rr[s] != before[s] and rl[s] == 0:
+            if rule == "admit" and s in diverged and rr[s] is not None \
+                    and rr[s] != before[s] and rl[s] == 0:
                 diverged.discard(s)
             if s in diverged:
+                skipped.add(rr[s])
                 continue
             assert rt[s] == pt[s], (k, s, rt, pt)
-            assert np.abs(rlg[s] - plg[s]).max() <= LOGIT_TOL, (k, s)
+            assert np.abs(rlg[s] - plg[s]).max() <= logit_tol, (k, s)
             if rn[s] != pn[s]:
                 top2 = np.sort(rlg[s])[-2:]
                 margin = float(top2[1] - top2[0])
-                assert margin <= NEAR_TIE, (k, s, rn[s], pn[s], margin)
+                assert margin <= near_tie, (k, s, rn[s], pn[s], margin)
                 flips.append((k, s, rr[s], margin))
-                diverged.add(s)
+                flipped.add(s)
+                skipped.add(rr[s])
+        diverged |= set(range(n_slots)) if rule == "all" and flipped else flipped
         before = rr
-    return flips
+    return flips, skipped - {None}
 
 
 @pytest.mark.parametrize("arch", TOKEN_ARCHS)
@@ -147,13 +190,16 @@ def test_engine_matches_reference_token_for_token(arch):
         pe.submit(b)
     re_.run()
     pe.run()
-    flips = _compare_calls(rlog, plog, 3)
+    flips, skipped = _compare_calls(rlog, plog, 3, _resync_rule(cfg),
+                                    TOLS_ARCH.get(arch, (LOGIT_TOL, NEAR_TIE)))
     assert [f[:3] for f in flips] == FLIPS[arch], flips
     assert all(len(r.out) == 12 for r in preqs)
     assert pe.pending == [] and all(r is None for r in pe.slot_req)
-    flipped = {rid for _, _, rid, _ in flips}
+    # the leaves the forward reads in float32 stay float32, as the reference's
+    assert all(T.tree_leaves(T.tree_map(
+        lambda n, t: (t.dtype == torch.float32) == (n in T.FLOAT32_LEAVES), pe.params)))
     for a, b in zip(rreqs, preqs):
-        if a.rid not in flipped:
+        if a.rid not in skipped:
             assert a.out == b.out, (a.rid, a.out, b.out)
     np.testing.assert_array_equal(np.asarray(re_.lengths), pe.lengths.numpy())
 
@@ -180,7 +226,7 @@ def test_engine_idle_slot_overflow_matches_reference():
                 break
         assert all(len(r.out) == n for r, n in zip(reqs, news))
     assert max(int(rec[1].max()) for rec in plog) > max_seq
-    flips = _compare_calls(rlog, plog, 2)
+    flips, _ = _compare_calls(rlog, plog, 2)
     assert [f[:3] for f in flips] == [(6, 1, 1)], flips
     np.testing.assert_array_equal(np.asarray(re_.lengths), pe.lengths.numpy())
 
@@ -189,8 +235,6 @@ def test_decode_drops_cache_writes_past_the_end():
     cfg = registry.smoke_config("phi3-mini-3.8b")
     params = T.init_params(cfg, torch.Generator().manual_seed(0))
     cache = T.init_cache(cfg, 2, 4, torch.float32, device="cpu")
-    from repro_torch.models import lm
-
     dec = lm.make_decode_step(cfg, compute_dtype=torch.float32)
     lengths = torch.tensor([3, 4], dtype=torch.int32)
     tok, cache, lens = dec(params, cache, torch.tensor([5, 7], dtype=torch.int32), lengths)
@@ -200,16 +244,12 @@ def test_decode_drops_cache_writes_past_the_end():
     assert tok.shape == (2,)
 
 
-def test_bf16_cache_equals_float32_cache():
-    """The reference's engine keeps a float32 cache of keys and values
-    that were bf16 when written: a bf16 cache gives the same logits."""
-    from repro_torch.models import lm
-
-    cfg = registry.smoke_config("qwen3-4b")
+def _bf16_and_f32_cache_logits(arch):
+    """bf16 decode logits over 4 steps from a float32 and a bf16 cache."""
+    cfg = registry.smoke_config(arch)
     params = lm.cast_params(T.init_params(cfg, torch.Generator().manual_seed(1)))
-    dec = lm.make_decode_step(cfg)
     toks = torch.tensor([[3, 9, 11], [4, 4, 100], [7, 8, 9], [1, 2, 3]], dtype=torch.int32)
-    outs = {}
+    outs = []
     for dt in (torch.float32, torch.bfloat16):
         cache = T.init_cache(cfg, 3, 8, dt, device="cpu")
         lengths = torch.zeros(3, dtype=torch.int32)
@@ -218,9 +258,24 @@ def test_bf16_cache_equals_float32_cache():
             logits, cache = T.forward(cfg, params, {"tokens": t[:, None]}, mode="decode",
                                       cache=cache, lengths=lengths)
             got.append(logits)
-            _, cache, lengths = dec(params, cache, t, lengths)
-        outs[dt] = torch.stack(got)
-    assert torch.equal(outs[torch.float32], outs[torch.bfloat16])
+            lengths = lengths + 1
+        outs.append(torch.stack(got))
+    return outs
+
+
+def test_bf16_cache_equals_float32_cache():
+    """The reference's engine keeps a float32 cache of keys and values
+    that were bf16 when written: a bf16 cache gives the same logits."""
+    f32, bf16 = _bf16_and_f32_cache_logits("qwen3-4b")
+    assert torch.equal(f32, bf16)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "recurrentgemma-2b", "rwkv6-7b"])
+def test_bf16_cache_equals_float32_cache_for_every_block_kind(arch):
+    """The same for the recurrent states: the conv state and ``x_prev``
+    were bf16 when written, and ``h`` and ``s`` are float32 in both."""
+    f32, bf16 = _bf16_and_f32_cache_logits(arch)
+    assert torch.equal(f32, bf16)
 
 
 def test_engine_reports_spans_and_metrics():
@@ -262,15 +317,6 @@ def test_engine_refuses_mesh_and_needs_a_device():
             engine.ServeEngine(cfg, params)
 
 
-def test_non_attention_archs_raise_in_the_engine():
-    cfg = registry.smoke_config("olmoe-1b-7b")
-    params = T.init_params(cfg, torch.Generator().manual_seed(0))
-    eng = engine.ServeEngine(cfg, params, n_slots=1, max_seq=8, device="cpu")
-    eng.submit(engine.Request(rid=0, prompt=np.array([1, 2], np.int32), max_new_tokens=1))
-    with pytest.raises(NotImplementedError, match="13b"):
-        eng.run()
-
-
 # ---------------------------------------------------------------------------
 # the examples
 # ---------------------------------------------------------------------------
@@ -300,6 +346,19 @@ def test_serve_lm_example_on_cpu():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             ex.main([])
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "moonshot-v1-16b-a3b",
+                                  "recurrentgemma-2b", "rwkv6-7b"])
+def test_serve_lm_example_serves_moe_and_recurrent_archs(arch):
+    ex = _load(REPO / "examples_torch" / "serve_lm.py", "ex_serve_lm")
+    text, reqs = _run_main(ex, ["--device", "cpu", "--arch", arch, "--requests", "3",
+                                "--slots", "2", "--new-tokens", "4"])
+    cfg = registry.smoke_config(arch)
+    assert text.startswith(f"{cfg.name} on cpu") or f"{cfg.name} on cpu" in text
+    assert [len(r.out) for r in reqs] == [4, 4, 4] and all(r.done for r in reqs)
+    assert all(0 <= t < cfg.padded_vocab for r in reqs for t in r.out)
+    assert re.search(r"^12 tokens in [0-9.]+s over \d+ engine steps \(.* 2 slots\)$", text, re.M)
 
 
 def test_factorize_embeddings_matches_reference_loop():
