@@ -10,6 +10,7 @@ import torch
 # power): the figures every modelled row prices against.  A card run below
 # 700 W (``nvidia-smi --query-gpu=power.limit``) is slower than these.
 PEAK_FP32_FLOPS = 67e12       # float32 outside the tensor cores
+PEAK_BF16_FLOPS = 989.4e12    # bf16 on the tensor cores, dense
 HBM_BYTES = 80e9              # 80 GB of HBM3
 HBM_BW = 3.35e12              # bytes/s of HBM3
 NVLINK_BW = 450e9             # bytes/s each way (NVLink 4, 900 GB/s total)

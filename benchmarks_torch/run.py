@@ -37,8 +37,7 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if _ROOT not in sys.path:
     sys.path.insert(0, _ROOT)
 
-# short name -> module; order is the full-run execution order.  The
-# reference's lm_substrate bench belongs to the LM substrate, not ported.
+# short name -> module; order is the full-run execution order
 MODULES = [
     ("convergence", "bench_convergence"),            # Fig. 6
     ("register_ablation", "bench_register_ablation"),  # Fig. 7
@@ -47,6 +46,7 @@ MODULES = [
     ("huge", "bench_huge"),                          # Fig. 11 + out-of-core
     ("reduction", "bench_reduction"),                # Fig. 5
     ("kernels", "bench_kernels"),                    # kernel-level fusion
+    ("lm_substrate", "bench_lm_substrate"),          # LM substrate overhead
     ("sgd", "bench_sgd"),                            # ALS vs SGD vs hybrid
 ]
 QUICK = ("convergence", "register_ablation")

@@ -155,7 +155,22 @@ Phases, in order; any failure stops the run with a non-zero exit:
    allocator's peak, one profiled step's device busy share and op count),
    and for recurrentgemma-2b and rwkv6-7b a timed bf16 prefill of 512
    tokens through the sequential scans.  This path has no CUDA kernel: the
-   reference computes these blocks outside any Pallas kernel.
+   reference computes these blocks outside any Pallas kernel;
+15. LM training (``lm_training``): one train step of every arch's smoke
+   config and the reference's tiny-LM convergence test (60 steps, the loss
+   falls by 0.1); phi3-mini-3.8b at full width, 2 layers, B=2, S=1024:
+   the fused loss against the plain one (rel 1e-5), microbatch 1 against
+   2 and ``remat`` on against off (loss rel 1e-4, params atol 2.5e-3 rtol
+   1e-3); the timed AdamW step of phi3-mini-3.8b at full width and
+   ``TRAIN_LAYERS`` of its 32 layers (bf16, remat, fused loss, batch 4 x
+   2048 in 2 microbatches): ms a step on CUDA events, tokens/s, mfu
+   against 989.4 TFLOP/s, the allocator's peak against the predicted state
+   bytes, then one Adafactor step; rwkv6-7b at full width, 2 layers: the
+   chunked WKV scan against one loop, the same loss at a lower peak;
+   ``examples_torch/train_lm.py`` at its defaults and with ``--ckpt`` and a
+   resume.  The training path launches none of the four kernels, and the
+   phase checks that it did not: the reference trains these models with
+   ``jax.grad`` outside any Pallas kernel.
 
 The second-to-last line of output is a JSON ``kernels`` record (with each
 kernel's ``launches_mesh``, its launches in phase 11's runs,
@@ -286,6 +301,9 @@ BENCH_ROWS = {
                         for k in ("flat", "two_phase")), ()),
     "kernels": (("kern_fused_AB_one_pass", "kern_paper_two_pass", "kern_batch_solve"),
                 ("fused_herm", "batch_solve")),
+    "lm_substrate": (tuple(f"lm_{k}_step_{a}" for a in ("phi3-mini-3.8b", "olmoe-1b-7b",
+                                                        "recurrentgemma-2b", "rwkv6-7b")
+                           for k in ("train", "decode")), ()),
     "sgd": (tuple(f"sgd_vs_als_{k}" for k in ("als", "sgd", "hybrid", "sgd_stream",
                                                "sgd_stream_skew", "sgd_stream_binned"))
             + ("sgd_binned_fill_win", "sgd_vs_als_sgd_stream_mesh"),
@@ -1097,6 +1115,360 @@ def moe_and_recurrent(torch, dev) -> dict:
         torch.cuda.empty_cache()
         out["seconds"][arch] = time.perf_counter() - t0
         log(f"phase 14 {arch}: {out['seconds'][arch]:.1f} s")
+    return out
+
+
+#: phase 15's tolerances: tests/test_training.py:133 (fused against plain),
+#: :113-117 (microbatch 1 against 2: loss, then params after one AdamW step)
+FUSED_REL = 1e-5
+MB_LOSS_REL = 1e-4
+MB_ATOL, MB_RTOL = 2.5e-3, 1e-3
+#: the timed train step: phi3-mini-3.8b at full width, this many of its 32
+#: layers (all 32 need ~84 GB of AdamW state, more than the card's 80 GB)
+TRAIN_LAYERS = 16
+TRAIN_B, TRAIN_S, TRAIN_MB = 4, 2048, 2
+
+
+def _matmul_params(cfg, params) -> int:
+    """The parameters that enter a matrix product: every block weight that
+    is a matrix or more per layer, and the head (the embedding when it is
+    tied); the embedding gather, norm scales and biases excluded."""
+    n = sum(t.numel() for grp in params["blocks"] for blk in grp.values()
+            for t in blk.values() if t.dim() >= 3)
+    return n + params.get("lm_head", params["embed"]).numel()
+
+
+def _kernel_kind(name: str) -> str:
+    """A CUDA kernel's name sorted into the kinds phase 15 reports: float32
+    products on the CUDA cores (no TF32), other products (bf16 on the
+    tensor cores), elementwise, reductions, copies, the rest."""
+    n = name.lower()
+    if "gemm" in n or "xmma" in n or "nvjet" in n or "cutlass" in n:
+        return "f32 products" if ("sgemm" in n or "f32f32_f32f32" in n) else "bf16 products"
+    if "copy" in n:
+        return "copies"
+    if "reduce" in n or "softmax" in n:
+        return "reductions"
+    if "elementwise" in n:
+        return "elementwise"
+    return "other"
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.models import transformer as T
+
+    return sum(t.numel() * t.element_size() for t in T.tree_leaves(tree))
+
+
+def lm_training(torch, wrappers: dict, dev) -> dict:
+    """Phase 15: the LM training path (``models/lm.py``'s loss and train
+    step, ``training/optimizer.py``, ``data/tokens.py``,
+    ``examples_torch/train_lm.py``) on the card.
+
+    (a) one train step of every arch's smoke config in float32
+    ``compute_dtype`` (which, as in the reference, casts only the master
+    weights: the forward runs in bf16), and the reference's tiny-LM
+    convergence test; (b) phi3-mini-3.8b at full width, 2 layers, B=2,
+    S=1024: fused against plain loss, microbatch 1 against 2, ``remat`` on
+    against off; (c) the timed step at ``TRAIN_LAYERS`` layers with its
+    numbers, and one Adafactor step; (d) rwkv6-7b at full width, 2 layers:
+    the chunked WKV scan against one unchunked loop, losses equal and the
+    allocator's peak lower with the chunks; (e) the example at its defaults
+    and with ``--ckpt`` and a resume.  Every kernel's count is set to 0 at
+    the start and read at the end: the path launches none of them.
+    """
+    import contextlib
+    import dataclasses
+    import functools
+    import math
+
+    import numpy as np
+
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))           # benchmarks_torch
+    from benchmarks_torch.common import PEAK_BF16_FLOPS
+    from repro_torch.configs import registry
+    from repro_torch.data import synthetic_lm_batches
+    from repro_torch.models import lm
+    from repro_torch.models import rwkv6 as rwkv_mod
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as opt
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for w in wrappers.values():
+        w.launches = 0
+    out = {}
+    t0 = time.perf_counter()
+
+    def to_dev(batch):
+        return {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in batch.items()}
+
+    def smoke_batch(cfg, B, S, seed):
+        rng = np.random.default_rng(seed)
+        b = {"labels": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32),
+             "mask": np.ones((B, S), np.float32)}
+        if cfg.frontend:
+            b["embeds"] = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+        else:
+            b["tokens"] = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+        return to_dev(b)
+
+    def clone_state(st):
+        return lm.TrainState(T.tree_map(lambda _, t: t.clone(), st.params),
+                             type(st.opt)(*(T.tree_map(lambda _, t: t.clone(), list(st.opt)))),
+                             st.step.clone())
+
+    def max_param_gap(a, b):
+        bad, gap = 0, 0.0
+        for x, y in zip(T.tree_leaves(a.params), T.tree_leaves(b.params)):
+            d = (x - y).abs()
+            gap = max(gap, d.max().item())
+            bad += int((d > MB_ATOL + MB_RTOL * y.abs()).sum())
+        return gap, bad
+
+    # (a) every arch's smoke config, then the tiny LM's convergence
+    smoke = {}
+    for arch in registry.list_archs():
+        cfg = registry.smoke_config(arch)
+        oc = opt.OptConfig(lr=1e-3)
+        st = lm.init_train_state(cfg, torch.Generator(device=dev).manual_seed(0), oc)
+        before = [t.clone() for t in T.tree_leaves(st.params)]
+        st, m = lm.make_train_step(cfg, oc, remat=False, compute_dtype=torch.float32)(
+            st, smoke_batch(cfg, 2, 16, 0))
+        loss, gn = m["loss"].item(), m["grad_norm"].item()
+        delta = sum((a - b).abs().sum().item() for a, b in zip(T.tree_leaves(st.params), before))
+        smoke[arch] = {"loss": loss, "grad_norm": gn, "delta": delta}
+        check(math.isfinite(loss) and math.isfinite(gn) and delta > 0,
+              f"phase 15 {arch}: smoke train step loss {loss}, grad norm {gn}, |dparams| {delta}")
+    log("phase 15 smoke train steps (float32 compute_dtype, B=2, S=16): " + ", ".join(
+        f"{a} loss {v['loss']:.4f} gnorm {v['grad_norm']:.3f}" for a, v in smoke.items()))
+    out["smoke"] = smoke
+
+    cfg = registry.smoke_config("phi3-mini-3.8b")
+    oc = opt.OptConfig(lr=3e-3)
+    st = lm.init_train_state(cfg, torch.Generator(device=dev).manual_seed(0), oc)
+    step = lm.make_train_step(cfg, oc, remat=False, compute_dtype=torch.float32)
+    losses = []
+    for _, batch in zip(range(60), synthetic_lm_batches(cfg.vocab, 32, 8, seed=0)):
+        st, m = step(st, to_dev(batch))
+        losses.append(m["loss"])
+    losses = [x.item() for x in losses]
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    log(f"phase 15 tiny-LM convergence (phi3-mini smoke, 60 steps, lr 3e-3): mean loss of "
+        f"the first 5 steps {first:.4f}, of the last 5 {last:.4f}")
+    check(last < first - 0.1, f"phase 15: the tiny LM's loss fell {first - last:.4f} < 0.1")
+    out["convergence"] = {"first5": first, "last5": last}
+
+    # (b) phi3-mini at full width, 2 layers, B=2, S=1024
+    full = registry.get_arch("phi3-mini-3.8b").model
+    cfg2 = dataclasses.replace(full, n_layers=2)
+    oc = opt.OptConfig(lr=1e-3)
+    st_a = lm.init_train_state(cfg2, torch.Generator(device=dev).manual_seed(0), oc)
+    b2 = to_dev(next(synthetic_lm_batches(cfg2.vocab, 1024, 2, seed=1)))
+    with torch.no_grad():
+        plain = lm.lm_loss(cfg2, st_a.params, b2, compute_dtype=torch.float32)
+        fused = lm.lm_loss(cfg2, st_a.params, b2, compute_dtype=torch.float32, fused_loss=True,
+                           loss_chunk=256)
+    rel = abs(fused.item() - plain.item()) / abs(plain.item())
+    log(f"phase 15 phi3-mini full width, 2 layers, B=2, S=1024: plain loss {plain.item():.6f}, "
+        f"fused (chunks of 256) {fused.item():.6f}, rel {rel:.3g}")
+    check(rel <= FUSED_REL, f"phase 15: fused loss {rel} from plain")
+    st_b, st_c = clone_state(st_a), clone_state(st_a)
+    sa, ma = lm.make_train_step(cfg2, oc, microbatch=1, compute_dtype=torch.float32)(st_a, b2)
+    sb, mb = lm.make_train_step(cfg2, oc, microbatch=2, compute_dtype=torch.float32)(st_b, b2)
+    sc, mc = lm.make_train_step(cfg2, oc, microbatch=1, remat=False,
+                                compute_dtype=torch.float32)(st_c, b2)
+    mb_rel = abs(ma["loss"].item() - mb["loss"].item()) / abs(ma["loss"].item())
+    gap_mb, bad_mb = max_param_gap(sb, sa)
+    gap_rm, bad_rm = max_param_gap(sc, sa)
+    log(f"  microbatch 1 vs 2: loss {ma['loss'].item():.6f} vs {mb['loss'].item():.6f} (rel "
+        f"{mb_rel:.3g}), params after the step max|d| {gap_mb:.3g}, {bad_mb} outside atol "
+        f"{MB_ATOL} rtol {MB_RTOL}; remat on vs off: loss equal {torch.equal(ma['loss'], mc['loss'])}"
+        f", params max|d| {gap_rm:.3g}, {bad_rm} outside")
+    check(mb_rel <= MB_LOSS_REL and bad_mb == 0, "phase 15: microbatch 2 differs from 1")
+    check(torch.equal(ma["loss"], mc["loss"]) and bad_rm == 0, "phase 15: remat changed the step")
+    out["full_2_layers"] = {"fused_rel": rel, "microbatch_loss_rel": mb_rel,
+                            "microbatch_params_max_abs": gap_mb, "remat_params_max_abs": gap_rm}
+    del st_a, st_b, st_c, sa, sb, sc, b2
+    torch.cuda.empty_cache()
+
+    # (c) the timed step: phi3-mini at full width, TRAIN_LAYERS layers
+    cfg16 = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    oc = opt.OptConfig(lr=3e-4, grad_clip=1.0)
+    st = lm.init_train_state(cfg16, torch.Generator(device=dev).manual_seed(0), oc)
+    n_all = sum(t.numel() for t in T.tree_leaves(st.params))
+    n_mm = _matmul_params(cfg16, st.params)
+    batch = to_dev(next(synthetic_lm_batches(cfg16.vocab, TRAIN_S, TRAIN_B, seed=0)))
+    step = lm.make_train_step(cfg16, oc, microbatch=TRAIN_MB, remat=True, fused_loss=True)
+    # f32 params, Adam's m and v, the accumulated grads, one microbatch's
+    # grads and the bf16 copy of the weights
+    predicted = 22 * n_all
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    st, m0 = step(st, batch)                         # warm-up
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    step_losses, norms = [], []
+    ev[0].record()
+    for i in range(3):
+        st, m = step(st, batch)
+        ev[i + 1].record()
+        step_losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+    torch.cuda.synchronize()
+    ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    peak = torch.cuda.max_memory_allocated()
+    step_losses, norms = [x.item() for x in step_losses], [x.item() for x in norms]
+    tokens = TRAIN_B * TRAIN_S
+    ms_mean = sum(ms) / len(ms)
+    mfu = 6 * n_mm * tokens / (ms_mean / 1e3 * PEAK_BF16_FLOPS)
+    log(f"phase 15 timed train step: phi3-mini-3.8b full width, {TRAIN_LAYERS} of "
+        f"{full.n_layers} layers ({n_all} parameters, {n_mm} in products), AdamW lr 3e-4 clip "
+        f"1.0, bf16, remat, fused loss (chunks of 1024), batch {TRAIN_B} x {TRAIN_S}, microbatch "
+        f"{TRAIN_MB}: warm-up loss {m0['loss'].item():.4f}; steps "
+        + ", ".join(f"{t:.2f} ms (loss {x:.4f}, grad norm {g:.4g})"
+                    for t, x, g in zip(ms, step_losses, norms))
+        + f"; mean {ms_mean:.2f} ms, {tokens / ms_mean * 1e3:.0f} tokens/s, mfu {mfu:.4f} "
+        f"(6 N tokens over {PEAK_BF16_FLOPS:.4g} FLOP/s); allocator peak {peak} B against "
+        f"{predicted} B predicted for the states (x{peak / predicted:.3f})")
+    check(all(math.isfinite(x) for x in step_losses) and step_losses[-1] < step_losses[0],
+          f"phase 15: the timed steps' loss did not fall: {step_losses}")
+    out["timed"] = {"ms": ms, "ms_mean": ms_mean, "tokens_per_s": tokens / ms_mean * 1e3,
+                    "mfu": mfu, "peak_bytes": peak, "predicted_bytes": predicted,
+                    "losses": step_losses, "grad_norms": norms, "params": n_all,
+                    "matmul_params": n_mm}
+    # one more step under torch.profiler: where the step's device time goes
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        w0 = time.perf_counter()
+        st, m = step(st, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - w0) * 1e3
+    by_name, spans = {}, []
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end))
+            by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    busy, end = 0.0, float("-inf")
+    for lo, hi in sorted(spans):
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    kinds = {}
+    for n, t in by_name.items():
+        kinds[_kernel_kind(n)] = kinds.get(_kernel_kind(n), 0.0) + t / 1e3
+    out["timed"].update(profiled_ms=wall, device_ops=len(spans), device_busy_ms=busy / 1e3,
+                        top_kernels_ms=[(n[:80], t / 1e3) for n, t in top], kinds_ms=kinds)
+    log(f"  one more step under the profiler: {wall:.1f} ms wall, " + (
+        f"{len(spans)} device ops busy {busy / 1e3:.1f} ms ({busy / 1e3 / wall * 100:.1f} %); "
+        "device ms by kind: " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                          sorted(kinds.items(), key=lambda kv: -kv[1]))
+        + "; the most device time: " + "; ".join(f"{n[:60]} {t / 1e3:.1f} ms" for n, t in top)
+        if spans else "device busy share not measured (the profiler returned no device events)"))
+    # one Adafactor step at the same shape, on the same weights
+    params = st.params
+    del st, m, m0
+    torch.cuda.empty_cache()
+    oca = opt.OptConfig(name="adafactor", lr=3e-4, grad_clip=1.0)
+    sta = lm.TrainState(params, opt.adafactor_init(params),
+                        torch.zeros((), dtype=torch.int32, device=dev))
+    torch.cuda.reset_peak_memory_stats()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    sta, ma = lm.make_train_step(cfg16, oca, microbatch=TRAIN_MB, remat=True,
+                                 fused_loss=True)(sta, batch)
+    e1.record()
+    torch.cuda.synchronize()
+    af_bytes = _tree_bytes([sta.opt.vr, sta.opt.vc])
+    af_ms, af_peak = e0.elapsed_time(e1), torch.cuda.max_memory_allocated()
+    log(f"  Adafactor step at the same shape: loss {ma['loss'].item():.4f}, grad norm "
+        f"{ma['grad_norm'].item():.4f}, {af_ms:.2f} ms, state {af_bytes} B (AdamW's "
+        f"{8 * n_all} B), allocator peak {af_peak} B")
+    check(math.isfinite(ma["loss"].item()) and math.isfinite(ma["grad_norm"].item()),
+          "phase 15: the Adafactor step is not finite")
+    out["adafactor"] = {"ms": af_ms, "state_bytes": af_bytes, "peak_bytes": af_peak}
+    del sta, params, batch
+    torch.cuda.empty_cache()
+
+    # (d) rwkv6-7b at full width, 2 layers: the chunked WKV scan's memory
+    rcfg = dataclasses.replace(registry.get_arch("rwkv6-7b").model, n_layers=2)
+    rb = to_dev(next(synthetic_lm_batches(rcfg.vocab, 1024, 1, seed=2)))
+    scan = rwkv_mod._wkv_scan
+    rw = {}
+    for label, chunk in (("chunked", 64), ("unchunked", 1024)):
+        st = lm.init_train_state(rcfg, torch.Generator(device=dev).manual_seed(0),
+                                 opt.OptConfig(lr=3e-4))
+        leaves = T.tree_leaves(st.params)
+        rwkv_mod._wkv_scan = functools.partial(scan, chunk=chunk)
+        try:
+            # the loss and its gradients alone, the part the chunks are for:
+            # the allocator's peak over the resident weights and moments
+            for p in leaves:
+                p.requires_grad_(True)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            grads = torch.autograd.grad(lm.lm_loss(rcfg, st.params, rb), leaves)
+            torch.cuda.synchronize()
+            grad_peak = torch.cuda.max_memory_allocated() - base
+            del grads
+            for p in leaves:
+                p.requires_grad_(False)
+            # then the whole train step
+            torch.cuda.reset_peak_memory_stats()
+            e0.record()
+            st, m = lm.make_train_step(rcfg, opt.OptConfig(lr=3e-4))(st, rb)
+            e1.record()
+            torch.cuda.synchronize()
+        finally:
+            rwkv_mod._wkv_scan = scan
+        rw[label] = {"loss": m["loss"], "peak": torch.cuda.max_memory_allocated(),
+                     "grad_peak": grad_peak, "ms": e0.elapsed_time(e1)}
+        del st, m, leaves
+        torch.cuda.empty_cache()
+    log(f"phase 15 rwkv6-7b full width (d={rcfg.d_model}, {rcfg.d_model // 64} heads), 2 layers, "
+        f"bf16, B=1, S=1024: chunked WKV scan loss {rw['chunked']['loss'].item():.6f}, step "
+        f"{rw['chunked']['ms']:.1f} ms, the loss and gradients' allocator peak over the "
+        f"resident state {rw['chunked']['grad_peak']} B, the step's peak "
+        f"{rw['chunked']['peak']} B; one loop (chunk=S) loss "
+        f"{rw['unchunked']['loss'].item():.6f}, {rw['unchunked']['ms']:.1f} ms, gradients' "
+        f"peak {rw['unchunked']['grad_peak']} B, step's {rw['unchunked']['peak']} B")
+    check(torch.equal(rw["chunked"]["loss"], rw["unchunked"]["loss"]),
+          "phase 15: the chunked WKV scan changed rwkv6's loss")
+    check(rw["chunked"]["grad_peak"] < rw["unchunked"]["grad_peak"],
+          "phase 15: the chunked WKV scan did not lower the gradients' allocator peak")
+    out["rwkv"] = {k: {"loss": v["loss"].item(), "peak": v["peak"], "grad_peak": v["grad_peak"],
+                       "ms": v["ms"]} for k, v in rw.items()}
+
+    # (e) the entry point, at its defaults, then with --ckpt and a resume
+    ex = _load_script("examples_torch/train_lm.py")
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        res = ex.main([])
+    ls = res["losses"]
+    log(f"phase 15 examples_torch/train_lm.py (defaults): {len(ls)} steps, loss {ls[0]:.4f} -> "
+        f"{ls[-1]:.4f}")
+    check(len(ls) == 60 and np.mean(ls[-5:]) < np.mean(ls[:5]),
+          "phase 15: the example's loss did not fall")
+    with tempfile.TemporaryDirectory() as d:
+        with contextlib.redirect_stdout(_Tee(sys.stdout)):
+            a = ex.main(["--ckpt", d, "--steps", "30"])
+        tee = _Tee(sys.stdout)
+        with contextlib.redirect_stdout(tee):
+            b = ex.main(["--ckpt", d, "--steps", "40"])
+    log(f"  --ckpt: 30 steps (saved at 25), then a rerun to 40 resumed at {b['start']} and ran "
+        f"{len(b['losses'])} steps, loss {b['losses'][0]:.4f} -> {b['losses'][-1]:.4f}")
+    check(len(a["losses"]) == 30 and b["start"] == 25 and len(b["losses"]) == 15
+          and "resumed from step 25" in tee.text(), "phase 15: the example did not resume")
+    out["example"] = {"losses_first_last": [ls[0], ls[-1]], "resumed_at": b["start"]}
+    del res, a, b
+
+    out["launches"] = {k: w.launches for k, w in wrappers.items()}
+    log(f"phase 15 launches of the four kernels on the training path: {out['launches']}")
+    check(not any(out["launches"].values()),
+          "phase 15: the training path launched a kernel it should not reach")
+    out["seconds"] = time.perf_counter() - t0
     return out
 
 
@@ -2684,6 +3056,13 @@ def main() -> int:
     log(f"phase 14 took {time.perf_counter() - t14:.1f} s")
     log("phase 14 serving: " + json.dumps({k: fam[k] for k in (
         "serve", "prefill_512_ms", "f64_layers", "own_capacity_prefill_max_abs", "seconds")}))
+
+    # -- 15. LM training --------------------------------------------------------------
+    t15 = time.perf_counter()
+    trn = lm_training(torch, wrappers, dev)
+    log(f"phase 15 took {time.perf_counter() - t15:.1f} s")
+    log("phase 15 training: " + json.dumps({k: trn[k] for k in (
+        "convergence", "full_2_layers", "timed", "adafactor", "rwkv", "example", "launches")}))
 
     for k in kernels:
         k["launches_mesh"] = launches_mesh.get(k["name"], 0)

@@ -38,12 +38,12 @@ def _lru_coeffs(params, x):
 def rg_lru_scan(params, x, h0=None):
     """RG-LRU over a sequence.  x [B, S, R] -> (y, h_last)."""
     a, b = _lru_coeffs(params, x)
-    h = torch.empty_like(b)
     hp = torch.zeros_like(b[:, 0]) if h0 is None else h0.to(b.dtype)
+    hs = []
     for t in range(x.shape[1]):
         hp = a[:, t] * hp + b[:, t]
-        h[:, t] = hp
-    return h.to(x.dtype), hp
+        hs.append(hp)
+    return torch.stack(hs, dim=1).to(x.dtype), hp
 
 
 def rg_lru_step(params, x, h):

@@ -10,13 +10,16 @@ Time-mix recurrence per head (dh = 64), state S [B, H, dh_k, dh_v]:
 
 Token shift is the static mix x + (shift(x) - x) * mu.  The WKV recurrence
 is a sequential loop over time in float32 (float64 in a float64 forward)
-for train, prefill and decode alike; the reference's chunked,
-rematerialised variant of it gives the same forward and exists for the
-backward pass (ROADMAP item 13c).
+for train, prefill and decode alike.  A sequence of several ``chunk``s
+runs chunk by chunk, each chunk under ``torch.utils.checkpoint`` when
+grad is enabled (the reference's two-level, rematerialised scan): the
+backward pass then keeps one [B, H, dh, dh] state a chunk instead of
+several a step.  The forward is the same loop either way.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 
@@ -43,20 +46,41 @@ def _decay(params, xw):
     return torch.exp(-torch.exp(L.upcast(params["w0"]) + L.upcast(lora)))
 
 
-def _wkv_scan(r, k, v, w, u, s0=None):
-    """Recurrent WKV.  r/k/v/w [B, S, H, dh]; u [H, dh].
-    Returns (y [B, S, H, dh], s_last [B, H, dh, dh])."""
-    B, S, H, dh = r.shape
-    r, k, v, w = (L.upcast(t) for t in (r, k, v, w))
-    s = torch.zeros((B, H, dh, dh), dtype=r.dtype, device=r.device) if s0 is None else s0
+def _wkv_steps(r, k, v, w, u, s):
+    """The WKV recurrence step by step from state ``s``.  r/k/v/w [B, S, H,
+    dh] (upcast); returns (y [B, S, H, dh], s_last)."""
     uu = u[None, :, :, None]
     ys = []
-    for t in range(S):
+    for t in range(r.shape[1]):
         kv = k[:, t, :, :, None] * v[:, t, :, None, :]      # [B, H, dh, dh]
         att = s + uu * kv
         ys.append(torch.einsum("bhi,bhij->bhj", r[:, t], att))
         s = w[:, t, :, :, None] * s + kv
     return torch.stack(ys, dim=1), s
+
+
+def _wkv_scan(r, k, v, w, u, s0=None, chunk: int = 64):
+    """Recurrent WKV.  r/k/v/w [B, S, H, dh]; u [H, dh].
+    Returns (y [B, S, H, dh], s_last [B, H, dh, dh]).
+
+    With S a multiple of ``chunk`` larger than it, an outer loop over the
+    S / chunk chunks, each rematerialised in the backward pass when grad is
+    enabled; otherwise one loop over the steps."""
+    B, S, H, dh = r.shape
+    r, k, v, w = (L.upcast(t) for t in (r, k, v, w))
+    s = torch.zeros((B, H, dh, dh), dtype=r.dtype, device=r.device) if s0 is None else s0
+    if S <= chunk or S % chunk:
+        return _wkv_steps(r, k, v, w, u, s)
+    remat = torch.is_grad_enabled()
+    ys = []
+    for c in range(S // chunk):
+        part = [t[:, c * chunk:(c + 1) * chunk] for t in (r, k, v, w)]
+        if remat:
+            y, s = checkpoint(_wkv_steps, *part, u, s, use_reentrant=False)
+        else:
+            y, s = _wkv_steps(*part, u, s)
+        ys.append(y)
+    return torch.cat(ys, dim=1), s
 
 
 def time_mix(params, x, *, cache=None):

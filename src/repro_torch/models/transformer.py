@@ -9,7 +9,10 @@ Parameters are the reference's tree as plain tensors: ``{"embed",
 both packages run on the same weights.
 
 Modes:
-- train   : full-sequence forward, all-position logits.
+- train   : full-sequence forward, all-position logits; with ``remat`` and
+  grad enabled each layer runs under ``torch.utils.checkpoint`` (the
+  reference's ``jax.checkpoint`` around its scan body), so the backward
+  pass keeps one residual stream a layer and recomputes the rest.
 - prefill : full-sequence forward, last-position logits + stacked caches.
 - decode  : one token per call against the caches, written in place.
 
@@ -21,7 +24,7 @@ dropped, as JAX's ``.at[].set`` drops it.
 
 Block kinds: ``attn`` (with a dense or MoE FFN), ``rglru`` (the Griffin
 recurrent branch and the same FFN) and ``rwkv`` (time and channel mix).  A
-``mesh`` raises until the mesh-serving slice (item 13d).
+``mesh`` raises until the mesh LM slice (item 13d).
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -37,7 +41,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 
-_MESH_13D = "ROADMAP item 13d (mesh serving)"
+_MESH_13D = "ROADMAP item 13d (mesh LM serving and training)"
 
 
 # ---------------------------------------------------------------------------
@@ -487,14 +491,20 @@ def forward(
     mesh=None,
     cache=None,
     lengths: Optional[torch.Tensor] = None,
+    remat: bool = True,
     causal_skip: bool = False,
     chunk_q: int = 512,
     chunk_kv: int = 512,
     serve_seq_shard: bool = False,
     compute_dtype=torch.bfloat16,
+    return_hidden: bool = False,
 ):
     """Returns (logits, cache).  logits: [B, S, V] for train, [B, 1, V] for
-    prefill (last position) and decode."""
+    prefill (last position) and decode.  ``return_hidden`` skips the output
+    projection and returns the final-normed hidden states instead (the
+    fused chunked loss projects them chunk by chunk).  ``remat`` applies
+    in train mode with grad enabled: one checkpoint a layer (one period of
+    its group's pattern)."""
     if mesh is not None or serve_seq_shard:
         raise NotImplementedError(f"a mesh forward is {_MESH_13D}")
     if mode not in ("train", "prefill", "decode"):
@@ -516,13 +526,27 @@ def forward(
     if cfg.pos_emb == "sinusoidal":
         x = x + L.sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
 
+    kw = dict(mode=mode, lengths=lengths, causal_skip=causal_skip, chunk_q=chunk_q,
+              chunk_kv=chunk_kv)
+    remat = remat and mode == "train" and torch.is_grad_enabled()
     new_groups = []
     for gi, (pattern, repeat) in enumerate(scan_groups(cfg)):
         gp = params["blocks"][gi]
         gc = cache["blocks"][gi] if cache is not None else None
         per_layer = isinstance(gc, (list, tuple))
+
+        def train_layer(xc, li, pattern=pattern, gp=gp):
+            for pi, kind in enumerate(pattern):
+                lp = {n: t[li] for n, t in gp[str(pi)].items()}
+                xc, _ = _BLOCK_FWD[kind](cfg, lp, xc, positions, None, **kw)
+            return xc
+
         outs = []
         for li in range(repeat):
+            if remat:
+                x = checkpoint(train_layer, x, li, use_reentrant=False)
+                outs.append({str(pi): {} for pi in range(len(pattern))})
+                continue
             if gc is None:
                 lc = {}
             elif per_layer:
@@ -533,9 +557,7 @@ def forward(
             for pi, kind in enumerate(pattern):
                 lp = {n: t[li] for n, t in gp[str(pi)].items()}
                 x, newc[str(pi)] = _BLOCK_FWD[kind](
-                    cfg, lp, x, positions, lc.get(str(pi)) or None, mode=mode,
-                    lengths=lengths, causal_skip=causal_skip, chunk_q=chunk_q,
-                    chunk_kv=chunk_kv)
+                    cfg, lp, x, positions, lc.get(str(pi)) or None, **kw)
             outs.append(newc)
         if mode == "decode":
             new_groups.append(gc)          # written in place, either layout
@@ -546,5 +568,7 @@ def forward(
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if mode == "prefill":
         x = x[:, -1:]
+    if return_hidden:
+        return x, {"blocks": new_groups}
     head = params.get("lm_head", params["embed"])
     return x @ head.to(x.dtype).T, {"blocks": new_groups}

@@ -1,5 +1,8 @@
-"""Training substrate: the learning-rate schedule (the only part of the
-reference's ``training/optimizer.py`` the SGD solver needs so far)."""
-from repro_torch.training.optimizer import lr_schedule
+"""Training substrate: the learning-rate schedule and the AdamW and
+Adafactor optimizers (the reference's ``training/optimizer.py``)."""
+from repro_torch.training.optimizer import (AdafactorState, AdamState, OptConfig,
+                                            clip_by_global_norm, global_norm,
+                                            lr_schedule, make_optimizer)
 
-__all__ = ["lr_schedule"]
+__all__ = ["AdafactorState", "AdamState", "OptConfig", "clip_by_global_norm",
+           "global_norm", "lr_schedule", "make_optimizer"]

@@ -302,7 +302,7 @@ def test_run_refuses_unknown_names_and_no_card(capsys):
     assert "unknown benchmark name" in capsys.readouterr().err
     assert [n for n, _ in p_run.MODULES] == [
         "convergence", "register_ablation", "texture", "scaling", "huge", "reduction",
-        "kernels", "sgd"]
+        "kernels", "lm_substrate", "sgd"]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             p_run.main(["--only", "reduction", "--no-history"])
