@@ -171,11 +171,33 @@ Phases, in order; any failure stops the run with a non-zero exit:
    resume.  The training path launches none of the four kernels, and the
    phase checks that it did not: the reference trains these models with
    ``jax.grad`` outside any Pallas kernel.
+16. mesh LM serving (``mesh_serving``) on ``make_mesh((2, 2), ("data",
+   "model"), devices=["cuda:0"] * 4)``, random weights from seed 0:
+   ``flash_decode``, ``flash_decode_update`` (sequence and kv layouts) and
+   ``cache_write`` at qwen3-4b's decode shapes (B=4, S=2048, KV=8, H=32,
+   dh=128) against the single device (1e-4, a wholly masked slice; the
+   writes bit-equal, one past the end dropped); phi3-mini-3.8b at full
+   width (heads and kv heads over "model"): prefill and 8 decode steps in
+   float32 at 2 layers (1e-4) and float64 at 8 layers (1e-7) and 16 (the
+   deepest that fits; tokens) against the single device, then ``ServeEngine(mesh=)`` at all 32 layers
+   in bf16 on the example's traffic with 4 slots against the single-device
+   engine (flips and their margins, ms per decode step, tokens/s, each
+   cell's weight and cache bytes against the layout's count); qwen3-4b at
+   8 of 36 layers with the cache's sequence over "model" (its
+   ``ArchSpec``): two 1024-token prompts through ``make_prefill_step(mesh=,
+   max_seq=2048)`` and 16 decode steps, each cell holding 1024 positions,
+   bf16 tokens and float32 logits at 2 layers against the single device;
+   olmoe-1b-7b at full width, 32 experts a cell: float32 at 2 layers at a
+   capacity that drops nothing (2e-4), each data shard's own capacity, the
+   engines.  The reference computes this path with ``einsum``s under
+   ``shard_map``, outside any Pallas kernel: the phase checks that it
+   launches none of the four kernels.
 
 The second-to-last line of output is a JSON ``kernels`` record (with each
 kernel's ``launches_mesh``, its launches in phase 11's runs,
 ``launches_entry_points``, its launches in phase 12's runs,
-``launches_lm``, its launches in phase 13's full-width factorization, and
+``launches_lm``, its launches in phase 13's full-width factorization,
+``launches_mesh_lm``, its launches in phase 16 (none), and
 for the ALS kernels ``max_abs_err_mesh``, their error against the plain
 versions at 11b's shapes, ``max_abs_err_lm`` at phase 13's, and
 ``max_abs_err_entry_points`` for the three training kernels at phase 12's
@@ -188,6 +210,7 @@ from __future__ import annotations
 
 import io
 import json
+import math
 import resource
 import subprocess
 import sys
@@ -1469,6 +1492,520 @@ def lm_training(torch, wrappers: dict, dev) -> dict:
     check(not any(out["launches"].values()),
           "phase 15: the training path launched a kernel it should not reach")
     out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+#: phase 16's tolerances: flash-decode against the local decode
+#: (tests/test_distributed.py:135), the EP MoE against one device
+#: (tests/test_distributed.py:159); the float32 and float64 forwards as
+#: phase 13 holds them
+FLASH_TOL = 1e-4
+MOE_TOL = 2e-4
+#: phi3-mini's float64 mesh checks: 8 layers gated at F64_TOL, and 16, the
+#: deepest that fits (the float32 master weights, 15.3 GB, their float64
+#: copy and its laid-out copy together: 32 layers would need 76.5 GB of
+#: 80), gated against two witnesses on one device: ``wo`` and ``w_down``
+#: contracted in the mesh's "model" blocks, summed in its order
+#: (:class:`_RowSplit`), and every weight one ulp up (:class:`_UlpShift`).
+#: The reference's init amplifies rounding-sized changes with depth; the
+#: mesh must stay within ``MESH_F64_WITNESS`` times the larger witness's
+#: distance from the plain single device (or within F64_TOL)
+MESH_F64_LAYERS = (8, 16)
+MESH_F64_WITNESS = 10
+#: the bf16 engines, mesh against one device call by call: the largest
+#: logit difference on the slots compared within ``MESH_BF16_REL`` of the
+#: single device's largest logit, and every flip at a top-2 margin under
+#: ``MESH_NEAR_TIE`` (tests/test_torch_mesh_lm.py's)
+MESH_BF16_REL = 0.5
+MESH_NEAR_TIE = 0.125
+
+
+class _LogitTap:
+    """Records the logits of each forward the steps run (the single
+    device's through ``transformer.forward``, the mesh's through
+    ``mesh_forward.forward``), last position, as float64 on the host."""
+
+    def __init__(self):
+        from repro_torch.models import mesh_forward
+        from repro_torch.models import transformer as T
+
+        self.T, self.MF = T, mesh_forward
+        self.fwd, self.mfwd = T.forward, mesh_forward.forward
+        self.logits = []
+
+    def __enter__(self):
+        def single(*a, **k):
+            out = self.fwd(*a, **k)
+            if k.get("mesh") is None and not k.get("return_hidden"):
+                self.logits.append(out[0][:, -1].double().cpu().numpy())
+            return out
+
+        def mesh(*a, **k):
+            out = self.mfwd(*a, **k)
+            self.logits.append(out[0].unshard()[:, -1].double().cpu().numpy())
+            return out
+
+        self.T.forward, self.MF.forward = single, mesh
+        return self
+
+    def __exit__(self, *exc):
+        self.T.forward, self.MF.forward = self.fwd, self.mfwd
+
+
+def _engine_run(torch, serve_ex, cfg, params, label, **kw):
+    """``ServeEngine`` (bf16, 4 slots, max_seq 96) on the example's traffic
+    (6 requests x 12 tokens), each decode call recorded: (each slot's
+    request, inputs, lengths, next tokens, last-position logits).  Returns
+    (requests, log, stats, engine bytes)."""
+    import contextlib
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import transformer as T
+    from repro_torch.obs import MetricsRegistry, Tracer
+    from repro_torch.serving.engine import ServeEngine
+
+    tr, reg = Tracer(), MetricsRegistry()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    eng = ServeEngine(cfg, params, n_slots=4, max_seq=96, tracer=tr, registry=reg, **kw)
+    torch.cuda.synchronize()
+    mesh = kw.get("mesh")
+    if mesh is not None:
+        by_cell = {"weights": shd.cell_bytes(eng.params, mesh),
+                   "weights_layout": shd.layout_bytes(eng.params, mesh),
+                   "cache": shd.cell_bytes(eng.cache, mesh),
+                   "cache_layout": shd.layout_bytes(eng.cache, mesh),
+                   "weights_on_card": sum(shd.device_bytes(eng.params).values()),
+                   "cache_on_card": sum(shd.device_bytes(eng.cache).values())}
+        weight_bytes, cache_bytes = by_cell["weights_on_card"], by_cell["cache_on_card"]
+    else:
+        by_cell = None
+        weight_bytes = sum(t.numel() * t.element_size() for t in T.tree_leaves(eng.params))
+        cache_bytes = sum(t.numel() * t.element_size() for t in T.tree_leaves(eng.cache))
+    torch.cuda.reset_peak_memory_stats()
+    log_ = []
+    dec = eng._decode
+
+    def logged(p, c, t, ln):
+        rec = ([None if r is None else r.rid for r in eng.slot_req], t.cpu().numpy(),
+               ln.cpu().numpy())
+        with _LogitTap() as tap:
+            n, c2, l2 = dec(p, c, t, ln)
+        log_.append(rec + (n.cpu().numpy(), tap.logits[-1]))
+        return n, c2, l2
+
+    eng._decode = logged
+    reqs = serve_ex.make_requests(cfg, 6, 12)
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        steps, secs = serve_ex.serve(eng, reqs)
+    peak = torch.cuda.max_memory_allocated() - resident
+    st = _serve_stats(tr, reqs, peak, weight_bytes, cache_bytes)
+    st.update(engine_steps=steps, seconds=secs)
+    check(all(len(r.out) == 12 and r.done for r in reqs)
+          and all(0 <= t < cfg.padded_vocab for r in reqs for t in r.out)
+          and reg.snapshot()["counters"]["serve/tokens_decoded"] == 72,
+          f"{label}: the engine did not serve 6 requests x 12 valid tokens")
+    log(f"  {label} engine (bf16, 4 slots, max_seq 96, 6 requests x 12 tokens, logits "
+        f"recorded): {steps} steps in {secs:.3f} s; decode step {st['decode_ms_mean']:.3f} ms "
+        f"mean, {st['decode_ms_median']:.3f} median, {st['decode_ms_min']:.3f}-"
+        f"{st['decode_ms_max']:.3f} over {st['decode_steps']} steps; prefill "
+        f"{st['prefill_ms_per_token']:.3f} ms a prompt token; {st['tokens_per_s']:.1f} tokens/s; "
+        f"bound {st['decode_bound_ms']:.3f} ms; allocator peak {peak / 2**20:.1f} MiB over "
+        f"{resident / 2**30:.2f} GiB resident")
+    del eng
+    torch.cuda.empty_cache()
+    return reqs, log_, st, by_cell
+
+
+def _engine_flips(log1, log2, n_slots, rule):
+    """Call by call (tests/test_torch_serving.py's ``_compare_calls``): the
+    same requests, lengths and inputs; the largest logit difference on the
+    slots compared; a differing token is a flip, with the single device's
+    top-2 margin.  After a flip the slot is compared again once a new
+    request is admitted into it at length 0 (``rule`` "admit"), or no slot
+    is compared from the next call on ("all": a MoE's slots share the
+    experts' capacity).  Returns (flips [(call, slot, request, margin)],
+    the largest logit difference, the requests not compared to the end)."""
+    import numpy as np
+
+    check(len(log1) == len(log2) > 0, f"the engines made {len(log1)} and {len(log2)} calls")
+    diverged, flips, before, skipped, dmax = set(), [], [None] * n_slots, set(), 0.0
+    for k, ((rr, rt, rl, rn, rlg), (pr, pt, pl, pn, plg)) in enumerate(zip(log1, log2)):
+        check(rr == pr and np.array_equal(rl, pl), f"call {k}: the engines' slots differ")
+        flipped = set()
+        for s in range(n_slots):
+            if rule == "admit" and s in diverged and rr[s] is not None \
+                    and rr[s] != before[s] and rl[s] == 0:
+                diverged.discard(s)
+            if s in diverged:
+                skipped.add(rr[s])
+                continue
+            check(rt[s] == pt[s], f"call {k} slot {s}: the engines' inputs differ")
+            dmax = max(dmax, float(np.abs(rlg[s] - plg[s]).max()))
+            if rn[s] != pn[s]:
+                top2 = np.sort(rlg[s])[-2:]
+                flips.append((k, s, rr[s], float(top2[1] - top2[0])))
+                flipped.add(s)
+                skipped.add(rr[s])
+        diverged |= set(range(n_slots)) if rule == "all" and flipped else flipped
+        before = rr
+    return flips, dmax, sorted(r for r in skipped if r is not None)
+
+
+class _RowSplit:
+    """The single-device forward with the attention's ``wo`` and the swiglu
+    FFN's ``w_down`` contracted in ``parts`` blocks of their input dim,
+    summed in ascending order: the mesh's row-parallel sums without the
+    mesh."""
+
+    def __init__(self, parts: int):
+        from repro_torch.models import layers as L
+        from repro_torch.models import transformer as T
+
+        self.T, self.L, self.parts = T, L, parts
+        self.saved = (T._attn_out, T._ffn_partial)
+
+    def __enter__(self):
+        T, L, n = self.T, self.L, self.parts
+
+        def split_sum(a, w):
+            k = a.shape[-1] // n
+            out = a[..., :k] @ w[:k]
+            for i in range(1, n):
+                out = out + a[..., i * k:(i + 1) * k] @ w[i * k:(i + 1) * k]
+            return out
+
+        def attn_out(out, wo):
+            return split_sum(out.reshape(out.shape[0], out.shape[1], -1),
+                             wo.reshape(-1, wo.shape[-1]))
+
+        def ffn(cfg, p, x):
+            check(cfg.mlp == "swiglu" and cfg.moe is None, f"_RowSplit: a {cfg.mlp} FFN")
+            dt = x.dtype
+            h = L.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
+            return split_sum(h, p["w_down"].to(dt))
+
+        T._attn_out, T._ffn_partial = attn_out, ffn
+        return self
+
+    def __exit__(self, *exc):
+        self.T._attn_out, self.T._ffn_partial = self.saved
+
+
+class _UlpShift:
+    """Every parameter of ``params`` moved one ulp toward +inf in place,
+    restored exactly on exit: a rounding-sized change of the whole model."""
+
+    def __init__(self, params):
+        from repro_torch.models import transformer as T
+
+        self.leaves = list({id(t): t for t in T.tree_leaves(params)}.values())
+
+    def __enter__(self):
+        for t in self.leaves:
+            t.nextafter_(t.new_full((), math.inf))
+        return self
+
+    def __exit__(self, *exc):
+        for t in self.leaves:
+            t.nextafter_(t.new_full((), -math.inf))
+
+
+def _check_engine_flips(label, flips, dmax, scale):
+    """Phase 16's gate on two bf16 engines compared call by call."""
+    check(dmax <= MESH_BF16_REL * scale,
+          f"phase 16 {label}: the mesh engine's logits are {dmax} from one device's "
+          f"(bound {MESH_BF16_REL}x the largest logit {scale})")
+    check(all(f[3] < MESH_NEAR_TIE for f in flips),
+          f"phase 16 {label}: a flip at a margin of {MESH_NEAR_TIE} or more: {flips}")
+
+
+def _mesh_vs_single(torch, cfg, params, mesh, dtype, tokens, steps, max_seq, seq=False,
+                    witness=False):
+    """Prefill (cache at ``max_seq``) and ``steps`` greedy decode steps on
+    one device and on ``mesh`` (parameters laid out by the serve policy)
+    from the same tokens in ``dtype``.  Returns the largest last-position
+    logit difference over the calls, whether every token agreed, the
+    largest single-device logit, the mesh cache's cell shape and the
+    calls' seconds (single, mesh).  ``witness``: also the single device
+    under :class:`_RowSplit` ("model" blocks) and under :class:`_UlpShift`:
+    their largest differences from the plain single device, and the row
+    split's from the mesh."""
+    import contextlib
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import lm
+
+    kw = dict(compute_dtype=dtype)
+    sp = shd.shard_params(cfg, params, mesh, serve_seq_shard=seq)
+    res = {}
+    runs = [("single", params, {}, contextlib.nullcontext()),
+            ("mesh", sp, dict(mesh=mesh, serve_seq_shard=seq), contextlib.nullcontext())]
+    if witness:
+        runs += [("witness", params, {}, _RowSplit(mesh.shape["model"])),
+                 ("ulp", params, {}, _UlpShift(params))]
+    for where, p, mk, split in runs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _LogitTap() as tap, split:
+            tok, cache = lm.make_prefill_step(cfg, max_seq=max_seq, **mk, **kw)(p, {"tokens": tokens})
+            dec = lm.make_decode_step(cfg, **mk, **kw)
+            lens = torch.full((tokens.shape[0],), tokens.shape[1], dtype=torch.int32,
+                              device=tokens.device)
+            toks = [tok]
+            for _ in range(steps):
+                tok, cache, lens = dec(p, cache, tok, lens)
+                toks.append(tok)
+        torch.cuda.synchronize()
+        res[where] = (tap.logits, torch.stack(toks).cpu(), cache, time.perf_counter() - t0)
+    def dist(a, b):
+        return max(float(abs(x - y).max()) for x, y in zip(res[a][0], res[b][0]))
+
+    scale = max(float(abs(a).max()) for a in res["single"][0])
+    k0 = res["mesh"][2]["blocks"][0]["0"]["k"]
+    out = {"max_abs": dist("single", "mesh"),
+           "tokens_equal": bool(torch.equal(res["single"][1], res["mesh"][1])),
+           "max_logit": scale, "cache_cell_shape": list(k0.cells[0].shape),
+           "seconds": [res["single"][3], res["mesh"][3]],
+           "tokens": res["single"][1].tolist()}
+    if witness:
+        out.update(witness_max_abs=dist("single", "witness"),
+                   ulp_max_abs=dist("single", "ulp"),
+                   mesh_vs_witness=dist("mesh", "witness"),
+                   witness_tokens_equal=bool(torch.equal(res["single"][1], res["witness"][1])))
+    return out
+
+
+def mesh_serving(torch, wrappers: dict, dev) -> dict:
+    """Phase 16: mesh LM serving on a data=2 x model=2 mesh whose four
+    cells share the card (results, launches and the host's cost of four
+    cells; not scaling).  The float32 and float64 checks gate; the bf16
+    runs are reported against the single device (flips with their
+    margins, the largest logit difference): the mesh decode rounds its
+    scores to bf16 as the reference's mesh decode does, and a deep random
+    network amplifies any rounding (phase 13).
+
+    (a) the primitives at qwen3-4b's decode shapes against the single
+    device; (b) phi3-mini-3.8b at full width: float32 at 2 layers, float64
+    at ``MESH_F64_LAYERS``, the engine at all 32 against the single-device
+    engine, the bytes of each cell; (c) qwen3-4b at 8 of 36 layers with its
+    cache's sequence split over "model": a 1024-token prompt and 16 decode
+    steps, bf16 at 8 layers and float32 at 2; (d) olmoe-1b-7b at full
+    width, 32 experts a cell: float32 at 2 layers at a capacity that drops
+    nothing, the engine at its own capacity.  The phase launches none of
+    the four kernels.
+    """
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.distributed.cache_update import cache_write
+    from repro_torch.distributed.flash_decode import flash_decode, flash_decode_update
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    t_start = time.perf_counter()
+    for w in wrappers.values():
+        w.launches = 0
+    serve_ex = _load_script("examples_torch/serve_lm.py")
+    mesh = make_mesh((2, 2), ("data", "model"), devices=[f"cuda:{dev.index or 0}"] * 4)
+    out = {"mesh": mesh.describe(), "seconds": {}}
+
+    # (a) the primitives at qwen3-4b's decode shapes, float32
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    B, S, KV, H, dh = 4, 2048, 8, 32, 128
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    q, kc, vc, kn, vn = rn(B, H, dh), rn(B, S, KV, dh), rn(B, S, KV, dh), rn(B, KV, dh), \
+        rn(B, KV, dh)
+    # row 1: the second cell's slice [1024, 2048) wholly masked; row 3: one position
+    lens = torch.tensor([2048, 700, 1500, 1], dtype=torch.int32, device=dev)
+    got = flash_decode(q, kc, vc, lens, mesh=mesh)
+    prim = {"flash_decode": (got - L.attention_decode(q, kc, vc, lens)).abs().max().item()}
+    lens_up = torch.tensor([2047, 700, 1500, 0], dtype=torch.int32, device=dev)
+    for layout, kw in (("seq", dict(seq_axis="model", kv_axis=None)),
+                       ("kv", dict(seq_axis=None, kv_axis="model"))):
+        k1, v1 = kc.clone(), vc.clone()
+        cache_write(k1, kn, lens_up)
+        cache_write(v1, vn, lens_up)
+        o, k2, v2 = flash_decode_update(q, kc.clone(), vc.clone(), kn, vn, lens_up, mesh=mesh,
+                                        dp=("data",), **kw)
+        prim[f"flash_decode_update_{layout}"] = (
+            o.unshard() - L.attention_decode(q, k1, v1, lens_up + 1)).abs().max().item()
+        check(torch.equal(k2.unshard(), k1) and torch.equal(v2.unshard(), v1),
+              f"flash_decode_update's {layout} cache write differs from the single device's")
+    lens_cw = torch.tensor([2048, 700, 1024, 0], dtype=torch.int32, device=dev)  # 2048: dropped
+    want = cache_write(kc.clone(), kn, lens_cw)
+    check(not torch.equal(want, kc) and torch.equal(want[0], kc[0]),
+          "the single-device write past the end was not dropped")
+    for layout, kw in (("seq", dict(seq_axis="model")), ("kv", dict(kv_axis="model"))):
+        got = cache_write(kc.clone(), kn, lens_cw, mesh=mesh, dp=("data",), **kw)
+        check(torch.equal(got.unshard(), want),
+              f"cache_write's {layout} layout differs from the single device's")
+    out["primitives"] = prim
+    log(f"phase 16 mesh {out['mesh']}; primitives at qwen3-4b's decode shapes (B={B}, S={S}, "
+        f"KV={KV}, H={H}, dh={dh}, float32) against the single device: max|d| "
+        + ", ".join(f"{k} {v:.3g}" for k, v in prim.items())
+        + f" (tolerance {FLASH_TOL}); cache_write and the fused writes bit-equal on both "
+        f"layouts, the write past the end dropped")
+    check(all(v <= FLASH_TOL for v in prim.values()), f"phase 16 primitives: {prim}")
+    del q, kc, vc, kn, vn, k1, v1, k2, v2, o, got, want
+    out["seconds"]["primitives"] = time.perf_counter() - t0
+
+    # (b) phi3-mini-3.8b at full width
+    t0 = time.perf_counter()
+    cfg = registry.get_arch("phi3-mini-3.8b").model
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 12)).astype(np.int32)).to(dev)
+    c2, p2 = _first_layers(cfg, params, 2)
+    r32 = _mesh_vs_single(torch, c2, p2, mesh, torch.float32, tokens, 8, 32)
+    gated, deepest = MESH_F64_LAYERS
+    c64, p64 = _first_layers(cfg, params, deepest)
+    p64 = T.tree_map(lambda _, t: t.double(), p64)
+    r64 = {n: _mesh_vs_single(torch, *_first_layers(c64, p64, n), mesh, torch.float64, tokens,
+                              8, 32, witness=True) for n in MESH_F64_LAYERS}
+    del p64
+    torch.cuda.empty_cache()
+    out["phi3"] = {"f32_2_layers": r32, "f64": {str(n): r for n, r in r64.items()}}
+    log(f"phase 16 phi3-mini-3.8b (d={cfg.d_model}, {cfg.n_heads} heads, kv {cfg.n_kv}; heads "
+        f"and kv heads split over model, the cache's kv heads too), B=4 x 12 tokens, prefill + "
+        f"8 decode steps, mesh against one device: float32 at 2 layers max|d| "
+        f"{r32['max_abs']:.3g} (tolerance {FWD_TOL}), tokens equal {r32['tokens_equal']}; "
+        + "; ".join(f"float64 at {n} layers max|d| {r['max_abs']:.4g}, tokens equal "
+                    f"{r['tokens_equal']}, largest logit {r['max_logit']:.6g}; witness (one "
+                    f"device, wo and w_down in the mesh's 2 blocks summed in order) "
+                    f"{r['witness_max_abs']:.4g} from the plain single device, "
+                    f"{r['mesh_vs_witness']:.4g} from the mesh; one device with every weight "
+                    f"one ulp up {r['ulp_max_abs']:.4g} from it" for n, r in r64.items())
+        + f" (tolerance {F64_TOL} at {gated}; at {deepest} {F64_TOL} or {MESH_F64_WITNESS}x "
+        f"the larger witness); seconds (single, mesh) {r32['seconds']}, "
+        + ", ".join(str(r["seconds"]) for r in r64.values()))
+    check(r32["max_abs"] <= FWD_TOL and r32["tokens_equal"],
+          f"phase 16 phi3 float32 mesh disagrees with one device: {r32}")
+    check(r64[gated]["max_abs"] <= F64_TOL and all(r["tokens_equal"] for r in r64.values()),
+          f"phase 16 phi3 float64 mesh disagrees with one device: {r64}")
+    wit = max(r64[deepest]["witness_max_abs"], r64[deepest]["ulp_max_abs"])
+    check(r64[deepest]["max_abs"] <= max(F64_TOL, MESH_F64_WITNESS * wit),
+          f"phase 16 phi3 float64 mesh at {deepest} layers is further from one device than "
+          f"{MESH_F64_WITNESS}x the witnesses: {r64[deepest]}")
+    runs = {}
+    for where, kw in (("mesh", dict(mesh=mesh)), ("single", dict(device=dev))):
+        runs[where] = _engine_run(torch, serve_ex, cfg, params, f"phi3-mini-3.8b {where}", **kw)
+    del params
+    torch.cuda.empty_cache()
+    flips, dmax, skipped = _engine_flips(runs["single"][1], runs["mesh"][1], 4, "admit")
+    scale = max(float(np.abs(r[4]).max()) for r in runs["single"][1])
+    same = sum(a.out == b.out for a, b in zip(runs["single"][0], runs["mesh"][0]))
+    by_cell = runs["mesh"][3]
+    out["phi3"]["engine"] = {"mesh": runs["mesh"][2], "single": runs["single"][2],
+                             "flips": flips, "max_logit_diff": dmax, "max_logit": scale,
+                             "requests_equal": same, "not_compared": skipped,
+                             "bytes_by_cell": by_cell}
+    log(f"  phi3-mini-3.8b engines, mesh against one device: decode step "
+        f"{runs['mesh'][2]['decode_ms_mean']:.3f} against {runs['single'][2]['decode_ms_mean']:.3f} "
+        f"ms ({runs['mesh'][2]['decode_ms_mean'] / runs['single'][2]['decode_ms_mean']:.2f}x), "
+        f"{runs['mesh'][2]['tokens_per_s']:.1f} against {runs['single'][2]['tokens_per_s']:.1f} "
+        f"tokens/s; {same} of 6 requests token for token; flips (call, slot, request, the single "
+        f"device's top-2 margin) {flips}; largest logit difference on the slots compared "
+        f"{dmax:.4g} (largest logit {scale:.4g}; bound {MESH_BF16_REL}x it, flips under a "
+        f"margin of {MESH_NEAR_TIE})")
+    _check_engine_flips("phi3-mini-3.8b", flips, dmax, scale)
+    log(f"  phi3-mini-3.8b bytes a cell (data, model) = (0,0) (0,1) (1,0) (1,1): weights "
+        f"{by_cell['weights']} (layout {by_cell['weights_layout']}), cache {by_cell['cache']} "
+        f"(layout {by_cell['cache_layout']}); on the card: weights {by_cell['weights_on_card']}, "
+        f"cache {by_cell['cache_on_card']}")
+    check(by_cell["weights"] == by_cell["weights_layout"]
+          and by_cell["cache"] == by_cell["cache_layout"],
+          "phase 16: a cell's bytes differ from its layout's count")
+    out["seconds"]["phi3"] = time.perf_counter() - t0
+
+    # (c) qwen3-4b at full width, 8 of 36 layers, the cache's sequence split
+    t0 = time.perf_counter()
+    spec_q = registry.get_arch("qwen3-4b")
+    check(spec_q.serve_seq_shard, "qwen3-4b's ArchSpec no longer shards its cache's sequence")
+    cfg_q = dataclasses.replace(spec_q.model, n_layers=QWEN3_LAYERS)
+    pq = T.init_params(cfg_q, torch.Generator(device=dev).manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg_q.vocab, (2, 1024)).astype(np.int32)).to(dev)
+    pq16 = T.tree_map(lambda n, t: t if n in T.FLOAT32_LEAVES else t.to(torch.bfloat16), pq)
+    rq16 = _mesh_vs_single(torch, cfg_q, pq16, mesh, torch.bfloat16, toks, 16, 2048, seq=True)
+    del pq16
+    cq2, pq2 = _first_layers(cfg_q, pq, 2)
+    rq32 = _mesh_vs_single(torch, cq2, pq2, mesh, torch.float32, toks, 16, 2048, seq=True)
+    del pq, pq2
+    torch.cuda.empty_cache()
+    out["qwen3"] = {"bf16_8_layers": rq16, "f32_2_layers": rq32}
+    log(f"phase 16 qwen3-4b cut to {QWEN3_LAYERS} of {spec_q.model.n_layers} layers (heads "
+        f"replicated, the cache's sequence split over model), 2 prompts of 1024 tokens, "
+        f"max_seq 2048, 16 decode steps: each cell holds a cache block "
+        f"{rq16['cache_cell_shape']} (layers, rows, positions, kv, dh); bf16 mesh against one "
+        f"device: tokens equal {rq16['tokens_equal']}, max|d| {rq16['max_abs']:.4g} (largest "
+        f"logit {rq16['max_logit']:.4g}); float32 at 2 layers max|d| {rq32['max_abs']:.3g} "
+        f"(tolerance {FWD_TOL}), tokens equal {rq32['tokens_equal']}; seconds (single, mesh) "
+        f"{rq16['seconds']} and {rq32['seconds']}")
+    check(rq16["cache_cell_shape"][2] == 1024, "phase 16: qwen3's cells do not hold 1024 positions")
+    check(rq16["max_abs"] <= MESH_BF16_REL * rq16["max_logit"],
+          f"phase 16 qwen3 bf16 mesh logits beyond {MESH_BF16_REL}x the largest: {rq16}")
+    check(rq32["max_abs"] <= FWD_TOL and rq32["tokens_equal"],
+          f"phase 16 qwen3 float32 mesh disagrees with one device: {rq32}")
+    out["seconds"]["qwen3"] = time.perf_counter() - t0
+
+    # (d) olmoe-1b-7b at full width, expert-parallel
+    t0 = time.perf_counter()
+    cfg_o = registry.get_arch("olmoe-1b-7b").model
+    po = T.init_params(cfg_o, torch.Generator(device=dev).manual_seed(0))
+    E, k = cfg_o.moe.n_experts, cfg_o.moe.top_k
+    co2, po2 = _first_layers(_no_drop(cfg_o), po, 2)
+    ro = _mesh_vs_single(torch, co2, po2, mesh, torch.float32, tokens, 8, 32)
+    del po2
+    caps = {f"{n} tokens": int(cfg_o.moe.capacity_factor * n * k / E) or 1 for n in (2, 4)}
+    runs_o, runs_nd = {}, {}
+    for where, kw in (("mesh", dict(mesh=mesh)), ("single", dict(device=dev))):
+        runs_o[where] = _engine_run(torch, serve_ex, cfg_o, po, f"olmoe-1b-7b {where}", **kw)
+        runs_nd[where] = _engine_run(torch, serve_ex, _no_drop(cfg_o), po,
+                                     f"olmoe-1b-7b no-drop {where}", **kw)
+    del po
+    flips_o, dmax_o, skipped_o = _engine_flips(runs_nd["single"][1], runs_nd["mesh"][1], 4,
+                                               "admit")
+    scale_o = max(float(np.abs(r[4]).max()) for r in runs_nd["single"][1])
+    torch.cuda.empty_cache()
+    same_o = sum(a.out == b.out for a, b in zip(runs_o["single"][0], runs_o["mesh"][0]))
+    out["olmoe"] = {"f32_2_layers_no_drop": ro, "capacity": caps,
+                    "engine": {"mesh": runs_o["mesh"][2], "single": runs_o["single"][2],
+                               "requests_equal": same_o,
+                               "bytes_by_cell": runs_o["mesh"][3]},
+                    "engine_no_drop": {"flips": flips_o, "max_logit_diff": dmax_o,
+                                       "max_logit": scale_o, "not_compared": skipped_o}}
+    log(f"phase 16 olmoe-1b-7b ({E} experts top-{k}, {E // 2} a cell): float32 at 2 layers, "
+        f"capacity factor {co2.moe.capacity_factor} (no pair drops), prefill + 8 decode steps "
+        f"max|d| {ro['max_abs']:.3g} (tolerance {MOE_TOL}), tokens equal {ro['tokens_equal']}; "
+        f"at its own capacity factor {cfg_o.moe.capacity_factor} a decode step's capacity is "
+        f"{caps['2 tokens']} a bucket on each data shard (2 of the 4 slots' tokens) and "
+        f"{caps['4 tokens']} on one device (4 tokens); engines: decode step "
+        f"{runs_o['mesh'][2]['decode_ms_mean']:.3f} (mesh) against "
+        f"{runs_o['single'][2]['decode_ms_mean']:.3f} ms, {runs_o['mesh'][2]['tokens_per_s']:.1f} "
+        f"against {runs_o['single'][2]['tokens_per_s']:.1f} tokens/s; {same_o} of 6 requests "
+        f"the same (the capacities differ); weights a cell {runs_o['mesh'][3]['weights']}; "
+        f"engines at capacity factor {co2.moe.capacity_factor} (no drops), call by call: flips "
+        f"(call, slot, request, margin) {flips_o}, largest logit difference on the slots "
+        f"compared {dmax_o:.4g} (largest logit {scale_o:.4g})")
+    _check_engine_flips("olmoe-1b-7b no-drop", flips_o, dmax_o, scale_o)
+    check(ro["max_abs"] <= MOE_TOL and ro["tokens_equal"],
+          f"phase 16 olmoe float32 EP mesh disagrees with one device: {ro}")
+    out["seconds"]["olmoe"] = time.perf_counter() - t0
+
+    out["launches"] = {k_: w.launches for k_, w in wrappers.items()}
+    log(f"phase 16 launches of the four kernels on the mesh serving path: {out['launches']}")
+    check(not any(out["launches"].values()),
+          "phase 16: the mesh serving path launched a kernel it should not reach")
+    out["seconds"]["total"] = time.perf_counter() - t_start
     return out
 
 
@@ -3064,7 +3601,15 @@ def main() -> int:
     log("phase 15 training: " + json.dumps({k: trn[k] for k in (
         "convergence", "full_2_layers", "timed", "adafactor", "rwkv", "example", "launches")}))
 
+    # -- 16. mesh LM serving ------------------------------------------------------------
+    t16 = time.perf_counter()
+    msv = mesh_serving(torch, wrappers, dev)
+    log(f"phase 16 took {time.perf_counter() - t16:.1f} s ({json.dumps(msv['seconds'])})")
+    log("phase 16 mesh serving: " + json.dumps({k: msv[k] for k in (
+        "primitives", "phi3", "qwen3", "olmoe", "launches")}))
+
     for k in kernels:
+        k["launches_mesh_lm"] = msv["launches"][k["name"]]
         k["launches_mesh"] = launches_mesh.get(k["name"], 0)
         if k["name"] in launches:
             k["launches_streaming"] = launches[k["name"]]

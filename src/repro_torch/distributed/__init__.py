@@ -7,13 +7,16 @@ cells of a ``launch.mesh.Mesh`` (cards, or cells sharing one card).
                    reduction (ring within fast domains, tree across them) —
                    combines the streaming drivers' per-data-shard partials;
 - su_als.py      : SU-ALS (paper Alg. 3) over the cells, and the per-wave
-                   mesh entry points the out-of-core drivers dispatch through.
-
-The reference's LM modules (``sharding``, ``flash_decode``,
-``cache_update``) belong to the LM substrate and are not ported.
+                   mesh entry points the out-of-core drivers dispatch through;
+- sharding.py    : the LM's logical-axis policies and ``Sharded``, a tensor
+                   laid out as one block a cell;
+- flash_decode.py: decode attention over a sequence- or kv-sharded cache,
+                   per-cell partial softmax combined over the cells;
+- cache_update.py: local writes into a sharded KV cache.
 """
 from repro_torch.distributed.collectives import (
     all_gather,
+    all_reduce,
     collective_bytes_reduce,
     hierarchical_reduce_scatter,
     reduce_scatter_flat,
@@ -37,6 +40,7 @@ from repro_torch.distributed.su_als import (
 __all__ = [
     "DeviceTopology",
     "all_gather",
+    "all_reduce",
     "allreduce_oracle",
     "collective_bytes_reduce",
     "hierarchical_reduce_scatter",

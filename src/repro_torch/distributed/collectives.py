@@ -102,6 +102,21 @@ def all_gather(parts: Sequence[torch.Tensor], axis: int = 0) -> list[torch.Tenso
     return [out[p.device] for p in parts]
 
 
+def all_reduce(parts: Sequence[torch.Tensor], dtype=None) -> list[torch.Tensor]:
+    """The sum of one group's tensors (a left fold in list order, widened
+    to at least float32) cast once to ``dtype`` (default: the inputs'),
+    given to every cell on its own device (one tensor per distinct device,
+    shared by the cells on it).  The inputs are left as they were."""
+    wide = torch.promote_types(parts[0].dtype, torch.float32)
+    total = _sum_to([p.to(wide) for p in parts], parts[0].device)
+    total = total.to(dtype or parts[0].dtype)
+    out: dict[torch.device, torch.Tensor] = {parts[0].device: total}
+    for p in parts:
+        if p.device not in out:
+            out[p.device] = total.to(p.device)
+    return [out[p.device] for p in parts]
+
+
 def collective_bytes_reduce(nbytes: int, p_fast: int, p_slow: int) -> dict:
     """Analytic per-device traffic of both schemes for a |T| = nbytes tensor."""
     flat_fast = nbytes * (p_fast - 1) / p_fast

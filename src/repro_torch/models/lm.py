@@ -10,7 +10,12 @@
   Adafactor update, in place.
 - ``quantize_int8``: the stochastic-rounding int8 compression of the
   reference's pod gradient sync; the sync itself
-  (``compressed_pod_psum``) is ROADMAP item 13d.
+  (``compressed_pod_psum``) is ROADMAP item 13f.
+- ``mesh=`` on the prefill and decode steps serves on a mesh of cells
+  (``models/mesh_forward.py``): the parameters laid out by
+  ``distributed.sharding.shard_params``, the cache on the cells, the next
+  tokens gathered on the mesh's first device.  A loss or train step on a
+  mesh is ROADMAP item 13f.
 
 ``cast_params`` casts the float32 master weights to the compute dtype once;
 the per-use casts in ``transformer.forward`` are then no-ops, and the
@@ -56,9 +61,28 @@ def make_prefill_step(cfg: ModelConfig, *, mesh=None, serve_seq_shard=False,
                       causal_skip: bool = False, max_seq: Optional[int] = None,
                       compute_dtype=torch.bfloat16):
     """``max_seq`` pads the produced (non-window) KV caches so subsequent
-    decode steps have slots to write into."""
-    if mesh is not None or serve_seq_shard:
-        raise NotImplementedError(f"mesh prefill is {T._MESH_13D}")
+    decode steps have slots to write into.
+
+    ``mesh``: the prefill on the mesh's cells; the cache comes back laid
+    out for the mesh decode at ``max_seq`` positions (which must divide
+    over "model" when ``serve_seq_shard`` splits the cache's sequence)."""
+    if mesh is not None:
+        from repro_torch.models import mesh_forward
+
+        mesh_forward.check_servable(cfg)
+        tp = mesh.shape.get("model", 1)
+        if serve_seq_shard and max_seq is not None and max_seq % tp:
+            raise ValueError(f"max_seq {max_seq} does not split over model={tp}")
+
+        def prefill_mesh(params, batch):
+            n = (batch["embeds"] if "embeds" in batch else batch["tokens"]).shape[1]
+            logits, cache = mesh_forward.forward(
+                cfg, params, batch, mode="prefill", mesh=mesh, serve_seq_shard=serve_seq_shard,
+                causal_skip=causal_skip, chunk_q=chunk_q, chunk_kv=chunk_kv,
+                compute_dtype=compute_dtype,
+                cache_len=max(max_seq, n) if max_seq is not None else None)
+            return mesh_forward.argmax(logits)[:, -1].to(torch.int32), cache
+        return prefill_mesh
 
     def pad_cache(cache):
         if max_seq is None or cfg.sliding_window:
@@ -82,8 +106,12 @@ def make_prefill_step(cfg: ModelConfig, *, mesh=None, serve_seq_shard=False,
 
 def make_decode_step(cfg: ModelConfig, *, mesh=None, serve_seq_shard=False,
                      compute_dtype=torch.bfloat16):
-    if mesh is not None or serve_seq_shard:
-        raise NotImplementedError(f"mesh decode is {T._MESH_13D}")
+    """The decode step; ``mesh``: on the mesh's cells, with the tokens,
+    lengths and next tokens on the mesh's first device."""
+    if mesh is not None:
+        from repro_torch.models import mesh_forward
+
+        mesh_forward.check_servable(cfg)
 
     def decode(params, cache, tokens_or_embeds, lengths):
         """tokens [B] int (or embeds [B, D]); lengths [B] = cache fill.
@@ -93,8 +121,14 @@ def make_decode_step(cfg: ModelConfig, *, mesh=None, serve_seq_shard=False,
         else:
             batch = {"embeds": tokens_or_embeds[:, None]}
         logits, cache = T.forward(cfg, params, batch, mode="decode", cache=cache,
-                                  lengths=lengths, compute_dtype=compute_dtype)
-        next_tok = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
+                                  lengths=lengths, compute_dtype=compute_dtype, mesh=mesh,
+                                  serve_seq_shard=serve_seq_shard)
+        if mesh is not None:
+            from repro_torch.models import mesh_forward
+
+            next_tok = mesh_forward.argmax(logits)[:, 0].to(torch.int32)
+        else:
+            next_tok = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
         return next_tok, cache, lengths + 1
     return decode
 
@@ -127,7 +161,7 @@ def lm_loss(
     the forward runs at its own default compute dtype, bf16 (the
     reference's ``lm_loss`` does not pass ``compute_dtype`` on)."""
     if mesh is not None:
-        raise NotImplementedError(f"a mesh loss is {T._MESH_13D}")
+        raise NotImplementedError(f"a mesh loss is {T._MESH_13F}")
     params = cast_params(params, compute_dtype)
     labels = batch["labels"]
     mask = batch.get("mask")
@@ -257,7 +291,7 @@ def make_train_step(
     The step updates the state's parameters and optimizer state in place
     and returns them with the step count advanced."""
     if mesh is not None or pod_compress:
-        raise NotImplementedError(f"a mesh train step and the pod sync are {T._MESH_13D}")
+        raise NotImplementedError(f"a mesh train step and the pod sync are {T._MESH_13F}")
     _, opt_update = opt_mod.make_optimizer(opt_cfg)
 
     def loss_and_grads(params, leaves, batch):

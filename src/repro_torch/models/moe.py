@@ -7,12 +7,19 @@ buffer in token-major order; a pair past the capacity ``C`` is dropped.
 Every expert's buffer goes through the expert FFN (``torch.bmm``), and the
 kept pairs' outputs are weighted and summed back into token order.
 
-Only the single-device branch is here: the expert-parallel ``mesh`` branch
-(experts sharded over "model", one psum) is ROADMAP item 13d.
+Expert parallelism (``mesh=``): the experts are split over "model", so
+each cell holds ``E / tp`` of them; the tokens are split over the data axes
+(replicated when the batch does not divide them).  Each cell routes,
+dispatches and combines its own tokens into its own experts in float32 —
+capacity from its *local* token count, as the reference's — and one
+float32 sum over the "model" cells, cast once, gives the output: the
+collective of a row-parallel product, no all-to-all.  The FSDP gather of
+the expert weights for training is ROADMAP item 13f.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
@@ -88,26 +95,86 @@ def _combine_local(y_buf, meta, T, out_dtype):
     return out.to(out_dtype)
 
 
-def moe_ffn(params, x, cfg: MoEConfig, mesh=None):
+def routed(p, xloc, cfg: MoEConfig, e_lo: int, out_dtype):
+    """One cell's share: its tokens xloc [t, D] routed over all E experts,
+    dispatched into its own ``p["w_gate"].shape[0]`` experts from ``e_lo``
+    on at the capacity of t tokens, combined into [t, D] in ``out_dtype``."""
+    dt = xloc.dtype
+    E, k = cfg.n_experts, cfg.top_k
+    t = xloc.shape[0]
+    wt, it = router_topk(xloc @ p["router"].to(dt), k)
+    capacity = int(cfg.capacity_factor * t * k / E) or 1
+    buf, meta = _dispatch_local(xloc, wt, it, p["w_gate"].shape[0], e_lo, capacity)
+    h = torch.bmm(buf, p["w_gate"].to(dt))
+    u = torch.bmm(buf, p["w_up"].to(dt))
+    y = torch.bmm(L.silu(h) * u, p["w_down"].to(dt))
+    return _combine_local(y, meta, t, out_dtype)
+
+
+def moe_ffn(params, x, cfg: MoEConfig, mesh=None, fsdp_gather=False):
     """x [B, S, D] -> [B, S, D].  params: router [D,E], w_gate/w_up [E,D,F],
     w_down [E,F,D].  The capacity is the reference's Python arithmetic on
     the token count B*S, so a decode step of B slots routes with its own
-    (often 1)."""
-    if mesh is not None:
-        raise NotImplementedError("an expert-parallel moe_ffn is ROADMAP item 13d (mesh serving)")
+    (often 1).
+
+    ``mesh``: the expert-parallel branch.  ``params`` are tensors or
+    ``Sharded`` leaves (router replicated, experts split over "model"),
+    ``x`` a tensor; the output is a tensor on ``x``'s device.  A mesh
+    without a "model" axis of size > 1 runs the single-device arithmetic,
+    as the reference's."""
+    if fsdp_gather:
+        raise NotImplementedError("moe_ffn's fsdp_gather is ROADMAP item 13f "
+                                  "(mesh LM training)")
     B, S, D = x.shape
-    E, k = cfg.n_experts, cfg.top_k
-    T = B * S
-    dt = x.dtype
-    xf = x.reshape(T, D)
-    logits = xf @ params["router"].to(dt)
-    wt, it = router_topk(logits, k)
-    capacity = int(cfg.capacity_factor * T * k / E) or 1
-    buf, meta = _dispatch_local(xf, wt, it, E, 0, capacity)
-    h = torch.bmm(buf, params["w_gate"].to(dt))
-    u = torch.bmm(buf, params["w_up"].to(dt))
-    y = torch.bmm(L.silu(h) * u, params["w_down"].to(dt))
-    return _combine_local(y, meta, T, dt).reshape(B, S, D)
+    tp = mesh.shape.get("model", 1) if mesh is not None else 1
+    if tp == 1:
+        return routed(params, x.reshape(B * S, D), cfg, 0, x.dtype).reshape(B, S, D)
+    from repro_torch.distributed import sharding as shd
+
+    if cfg.n_experts % tp:
+        raise ValueError(f"{cfg.n_experts} experts do not split over model={tp}")
+    dp = shd.dp_axes(mesh)
+    if B % math.prod(mesh.shape[a] for a in dp):
+        dp = None             # replicated batch (e.g. batch=1 decode)
+    dp = dp or None
+    specs = moe_param_specs()
+    p = {n: shd.as_sharded(params[n], specs[n], mesh) for n in specs}
+    xs = shd.as_sharded(x, (dp, None, None), mesh)
+    out = moe_ffn_cells({n: t.cells for n, t in p.items()},
+                        [t.reshape(-1, D) for t in xs.cells],
+                        [p["w_gate"].offset(c, 0) for c in range(mesh.size)], cfg, mesh,
+                        x.dtype)
+    return shd.Sharded(xs.spec, xs.shape, mesh,
+                       [t.reshape(xs.cells[c].shape) for c, t in enumerate(out)]).unshard(x.device)
+
+
+def moe_ffn_cells(p_cells, x_cells, e_offsets, cfg: MoEConfig, mesh, dtype):
+    """The expert-parallel branch on laid-out operands: cell c's parameters
+    ``{name: p_cells[name][c]}``, its tokens ``x_cells[c]`` [t, D] and its
+    first expert ``e_offsets[c]``.  Each cell's float32 share, then one sum
+    over the "model" cells in ascending order, cast once to ``dtype``.
+    Returns the cells' outputs [t, D]."""
+    from repro_torch.distributed.collectives import all_reduce
+    from repro_torch.distributed.sharding import groups_over
+
+    parts = []
+    for c, xc in enumerate(x_cells):
+        pc = {n: v[c] for n, v in p_cells.items()}
+        parts.append(routed(pc, xc, cfg, e_offsets[c], L.upcast(xc).dtype))
+    out = [None] * len(parts)
+    for group in groups_over(mesh, "model"):
+        for c, t in zip(group, all_reduce([parts[c] for c in group], dtype)):
+            out[c] = t
+    return out
+
+
+def moe_param_specs():
+    """The expert-parallel layout of the MoE leaves: the router
+    replicated, the experts split over "model"."""
+    return {"router": (None, None),
+            "w_gate": ("model", None, None),
+            "w_up": ("model", None, None),
+            "w_down": ("model", None, None)}
 
 
 def moe_param_shapes(d_model: int, d_ff: int, cfg: MoEConfig):

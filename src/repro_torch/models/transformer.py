@@ -23,8 +23,12 @@ returns that cache.  A write at a position past the cache's end is
 dropped, as JAX's ``.at[].set`` drops it.
 
 Block kinds: ``attn`` (with a dense or MoE FFN), ``rglru`` (the Griffin
-recurrent branch and the same FFN) and ``rwkv`` (time and channel mix).  A
-``mesh`` raises until the mesh LM slice (item 13d).
+recurrent branch and the same FFN) and ``rwkv`` (time and channel mix).
+
+``mesh=``: prefill and decode of the ``attn`` archs on a mesh of cells,
+with the parameters laid out by ``distributed.sharding.shard_params``
+(``models/mesh_forward.py``).  The train mode, the recurrent blocks and
+the ``mlp_2d`` layout on a mesh are ROADMAP item 13f and raise.
 """
 from __future__ import annotations
 
@@ -36,12 +40,14 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.cache_update import cache_write
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 
-_MESH_13D = "ROADMAP item 13d (mesh LM serving and training)"
+_MESH_13F = ("ROADMAP item 13f (mesh LM training, the FSDP gather, the pod sync, the "
+             "mlp_2d serving layout and the recurrent blocks on a mesh)")
 
 
 # ---------------------------------------------------------------------------
@@ -166,6 +172,18 @@ def param_shapes(cfg: ModelConfig):
         blocks.append(grp)
     tree["blocks"] = blocks
     return tree
+
+
+def logical_axes_tree(cfg: ModelConfig):
+    """:func:`param_shapes` with each leaf's logical axes in place of its
+    (shape, axes) pair."""
+    def axes(tree):
+        if isinstance(tree, dict):
+            return {k: axes(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [axes(v) for v in tree]
+        return tree[1]
+    return axes(param_shapes(cfg))
 
 
 def _shape_tree_map(fn: Callable, shapes, name: Optional[str] = None):
@@ -305,10 +323,21 @@ def _block_cache_shape(cfg: ModelConfig, kind: str, batch: int, smax: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, smax: int, dtype=torch.bfloat16,
-               stacked: bool = True, device=None):
+               stacked: bool = True, device=None, mesh=None, serve_seq_shard: bool = False):
     """``stacked=True``: leaves carry a leading layer dim (the layout
-    prefill produces).  ``stacked=False``: one subtree per layer."""
+    prefill produces).  ``stacked=False``: one subtree per layer.  With a
+    ``mesh`` the leaves are ``Sharded`` over its cells, stacked, laid out
+    as a mesh decode reads them (``mesh_forward.cache_spec``)."""
     from repro_torch.backend import resolve_device
+
+    if mesh is not None:
+        if device is not None:
+            raise ValueError("a mesh cache lives on the mesh's devices: pass no device")
+        if not stacked:
+            raise ValueError("a mesh cache is stacked, as the mesh prefill makes it")
+        from repro_torch.models import mesh_forward
+
+        return mesh_forward.init_cache(cfg, batch, smax, dtype, mesh, serve_seq_shard)
 
     dev = resolve_device(device)
     groups = []
@@ -344,30 +373,26 @@ def _proj(x, w):
     return (x @ w.reshape(w.shape[0], -1)).reshape(x.shape[:-1] + w.shape[1:])
 
 
-def _mlp_forward(cfg: ModelConfig, p, x):
+def _ffn_partial(cfg: ModelConfig, p, x):
+    """The dense FFN at ``x``'s dtype without the gelu MLP's output bias:
+    on a mesh, each cell's row-parallel partial."""
     dt = x.dtype
+    if cfg.mlp == "gelu":
+        return L.gelu(x @ p["w_in"].to(dt) + p["b_in"].to(dt)) @ p["w_out"].to(dt)
+    mlp = L.swiglu_mlp if cfg.mlp == "swiglu" else L.geglu_mlp
+    return mlp(x, p["w_gate"].to(dt), p["w_up"].to(dt), p["w_down"].to(dt))
+
+
+def _mlp_forward(cfg: ModelConfig, p, x):
     if cfg.moe is not None:
         return moe_mod.moe_ffn(p, x, cfg.moe)
-    if cfg.mlp == "swiglu":
-        return L.swiglu_mlp(x, p["w_gate"].to(dt), p["w_up"].to(dt), p["w_down"].to(dt))
-    if cfg.mlp == "geglu":
-        return L.geglu_mlp(x, p["w_gate"].to(dt), p["w_up"].to(dt), p["w_down"].to(dt))
-    return L.gelu_mlp(x, p["w_in"].to(dt), p["b_in"].to(dt),
-                      p["w_out"].to(dt), p["b_out"].to(dt))
+    y = _ffn_partial(cfg, p, x)
+    return y + p["b_out"].to(x.dtype) if cfg.mlp == "gelu" else y
 
 
-def _write_at(buf, at, new):
-    """``buf[b, at[b]] = new[b]`` for every row b; a row whose ``at`` is past
-    the end of ``buf``'s dim 1 keeps ``buf`` as it was (no host sync)."""
-    rows = torch.arange(buf.shape[0], device=buf.device)
-    ok = (at < buf.shape[1]).view((-1,) + (1,) * (new.dim() - 1))
-    at = at.clamp(max=buf.shape[1] - 1).long()
-    buf[rows, at] = torch.where(ok, new.to(buf.dtype), buf[rows, at])
-
-
-def _attn_forward(cfg, p, x, positions, cache, *, mode, lengths,
-                  causal_skip, chunk_q, chunk_kv):
-    B, S, _ = x.shape
+def _qkv(cfg: ModelConfig, p, x, positions):
+    """The attention block's q, k, v [B, S, heads, dh] from the residual
+    ``x`` at its dtype: ln1, the projections and biases, qk-norm, RoPE."""
     dt = x.dtype
     xn = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     q = _proj(xn, p["wq"].to(dt))
@@ -383,15 +408,33 @@ def _attn_forward(cfg, p, x, positions, cache, *, mode, lengths,
     if cfg.pos_emb == "rope":
         q = L.rope(q, positions, cfg.rope_theta)
         k = L.rope(k, positions, cfg.rope_theta)
+    return q, k, v
 
+
+def _causal_attention(q, k, v, *, window, causal_skip, chunk_q, chunk_kv):
+    """Train and prefill attention: the whole score matrix up to
+    ``max(chunk_q, 256)`` positions, chunked beyond."""
+    if q.shape[1] <= max(chunk_q, 256):
+        return L.attention_full(q, k, v, causal=True, window=window)
+    return L.attention_chunked(q, k, v, causal=True, window=window, chunk_q=chunk_q,
+                               chunk_kv=chunk_kv, causal_skip=causal_skip)
+
+
+def _attn_out(out, wo):
+    """The attention's output [B, S, heads, dh] through ``wo`` [heads, dh, D]."""
+    return out.reshape(out.shape[0], out.shape[1], -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+def _attn_forward(cfg, p, x, positions, cache, *, mode, lengths,
+                  causal_skip, chunk_q, chunk_kv):
+    B, S, _ = x.shape
+    dt = x.dtype
+    q, k, v = _qkv(cfg, p, x, positions)
     window = cfg.sliding_window
     new_cache = {}
     if mode in ("train", "prefill"):
-        if S <= max(chunk_q, 256):
-            out = L.attention_full(q, k, v, causal=True, window=window)
-        else:
-            out = L.attention_chunked(q, k, v, causal=True, window=window, chunk_q=chunk_q,
-                                      chunk_kv=chunk_kv, causal_skip=causal_skip)
+        out = _causal_attention(q, k, v, window=window, causal_skip=causal_skip,
+                                chunk_q=chunk_q, chunk_kv=chunk_kv)
         if mode == "prefill":
             if window:
                 # ring-buffer invariant: global position p lives in slot
@@ -415,14 +458,13 @@ def _attn_forward(cfg, p, x, positions, cache, *, mode, lengths,
             cache["pos"][bidx, slot] = lengths.to(torch.int32)
             out1 = _decode_ring(q[:, 0], kc.to(dt), vc.to(dt), cache["pos"], lengths)
         else:
-            _write_at(kc, lengths, k[:, 0])
-            _write_at(vc, lengths, v[:, 0])
+            cache_write(kc, k[:, 0], lengths)       # a write past the end is dropped
+            cache_write(vc, v[:, 0], lengths)
             out1 = L.attention_decode(q[:, 0], kc.to(dt), vc.to(dt), lengths + 1)
         new_cache = cache
         out = out1[:, None]
 
-    wo = p["wo"].to(dt)
-    x = x + out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+    x = x + _attn_out(out, p["wo"].to(dt))
     xn2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + _mlp_forward(cfg, p, xn2), new_cache
 
@@ -504,9 +546,23 @@ def forward(
     projection and returns the final-normed hidden states instead (the
     fused chunked loss projects them chunk by chunk).  ``remat`` applies
     in train mode with grad enabled: one checkpoint a layer (one period of
-    its group's pattern)."""
-    if mesh is not None or serve_seq_shard:
-        raise NotImplementedError(f"a mesh forward is {_MESH_13D}")
+    its group's pattern).
+
+    ``mesh``: prefill or decode on the mesh's cells (``mesh_forward``):
+    the parameters and the cache ``Sharded``, the logits returned as a
+    ``Sharded`` split by vocab over "model"; ``serve_seq_shard`` splits
+    the cache's sequence over "model" (no effect without a mesh, as in the
+    reference)."""
+    if mesh is not None:
+        if return_hidden:
+            raise NotImplementedError(f"the hidden states on a mesh (the fused loss) are "
+                                      f"{_MESH_13F}")
+        from repro_torch.models import mesh_forward
+
+        return mesh_forward.forward(
+            cfg, params, batch, mode=mode, mesh=mesh, cache=cache, lengths=lengths,
+            causal_skip=causal_skip, chunk_q=chunk_q, chunk_kv=chunk_kv,
+            serve_seq_shard=serve_seq_shard, compute_dtype=compute_dtype)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     if "embeds" in batch:

@@ -26,6 +26,13 @@ per-step decode run in ``serve.prefill`` / ``serve.decode_step`` spans
 card's work), an ``active_slots`` gauge tracks occupancy, and
 ``serve/tokens_decoded`` counts throughput.
 
+``mesh=`` serves on a mesh of cells: the global parameters are cast as
+below and laid out once by the serve policy
+(``distributed.sharding.shard_params``), the bf16 cache is laid out on
+the cells (its slots split over the data axes when they divide, else
+replicated), and the slots' lengths and tokens stay on the mesh's first
+device.  The recurrent archs on a mesh are ROADMAP item 13f and raise.
+
 The engine computes in bf16, as the reference's does.  Its float32
 weights are cast to bf16 once, except the leaves the forward reads in
 float32 (``transformer.FLOAT32_LEAVES``: norm scales, ``lam``, ``w0``,
@@ -62,23 +69,42 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, *, n_slots: int = 4,
                  max_seq: int = 512, mesh=None, serve_seq_shard=False,
                  tracer=None, registry=None, device: DeviceLike = None):
-        if mesh is not None or serve_seq_shard:
-            raise NotImplementedError(f"mesh serving is {T._MESH_13D}")
-        dev = resolve_device(device)
+        if mesh is not None:
+            if device is not None:
+                raise ValueError("a mesh engine runs on the mesh's devices: pass no device")
+            from repro_torch.distributed.sharding import shard_params
+            from repro_torch.models.mesh_forward import check_servable
+
+            check_servable(cfg)
+            dev = mesh.home
+        else:
+            dev = resolve_device(device)
         self.cfg = cfg
-        self.params = T.tree_map(
-            lambda n, p: p.to(dev, torch.bfloat16)
-            if p.dtype == torch.float32 and n not in T.FLOAT32_LEAVES else p.to(dev),
-            params)
+        self.mesh = mesh
+
+        def serving_dtype(n, p):
+            """bf16 for the float32 leaves outside ``T.FLOAT32_LEAVES``."""
+            return (torch.bfloat16 if p.dtype == torch.float32 and n not in T.FLOAT32_LEAVES
+                    else None)
+
+        if mesh is not None:   # each cell's block cast on its own device
+            self.params = shard_params(cfg, params, mesh, serve_seq_shard=serve_seq_shard,
+                                       dtype_of=serving_dtype)
+        else:
+            self.params = T.tree_map(lambda n, p: p.to(dev, serving_dtype(n, p)), params)
         self.n_slots = n_slots
         self.max_seq = max_seq
         self.tracer = tracer if tracer is not None else current_tracer()
         self.registry = registry
-        self.cache = T.init_cache(cfg, n_slots, max_seq, torch.bfloat16, device=dev)
+        if mesh is not None:
+            self.cache = T.init_cache(cfg, n_slots, max_seq, torch.bfloat16, mesh=mesh,
+                                      serve_seq_shard=serve_seq_shard)
+        else:
+            self.cache = T.init_cache(cfg, n_slots, max_seq, torch.bfloat16, device=dev)
         self.lengths = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
         self.slot_req: List[Optional[Request]] = [None] * n_slots
         self.pending: List[Request] = []
-        self._decode = lm_mod.make_decode_step(cfg)
+        self._decode = lm_mod.make_decode_step(cfg, mesh=mesh, serve_seq_shard=serve_seq_shard)
         self.last_tok = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
 
     def submit(self, req: Request):

@@ -31,6 +31,16 @@ REPO = Path(__file__).resolve().parents[1]
 SMALL = ["--small", "--device", "cpu"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One torch thread for this file's runs: the suite's workers share the
+    machine's cores (spinning thread pools slow every worker down)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _load(path: Path, name: str):
     spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)

@@ -44,6 +44,17 @@ OTHER = {"olmoe-1b-7b": "moe", "moonshot-v1-16b-a3b": "moe",
 TOKEN = DENSE + sorted(OTHER)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One torch thread for this file's smoke-size tensors: as fast alone,
+    and the suite's workers share the machine's cores (spinning thread
+    pools slow every worker down)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _no_drop(cfg):
     """``cfg`` with a capacity at which no MoE pair drops (capacity >= the
     token count); other configs as they are."""
@@ -526,15 +537,25 @@ def test_caches_of_every_block_kind_match_reference(arch):
 
 
 def test_mesh_paths_raise_with_their_roadmap_item():
+    """Mesh serving is ported (tests/test_torch_mesh_lm.py); what stays
+    unported raises naming ROADMAP item 13f: a train forward and a train
+    step on a mesh, and the recurrent archs' mesh steps."""
+    from repro_torch.distributed.sharding import shard_params
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.training.optimizer import OptConfig
+
+    mesh = make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4)
     cfg = registry.smoke_config("phi3-mini-3.8b")
     pp = T.init_params(cfg, torch.Generator().manual_seed(0))
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="13d"):
-        T.forward(cfg, pp, batch, mode="train", mesh=object())
-    with pytest.raises(NotImplementedError, match="13d"):
-        lm.make_decode_step(cfg, serve_seq_shard=True)
-    with pytest.raises(NotImplementedError, match="13d"):
-        lm.make_prefill_step(cfg, mesh=object())
+    with pytest.raises(NotImplementedError, match="13f"):
+        T.forward(cfg, shard_params(cfg, pp, mesh), batch, mode="train", mesh=mesh)
+    with pytest.raises(NotImplementedError, match="13f"):
+        lm.make_train_step(cfg, OptConfig(), mesh=mesh)
+    with pytest.raises(NotImplementedError, match="13f"):
+        lm.make_decode_step(registry.smoke_config("rwkv6-7b"), mesh=mesh, serve_seq_shard=True)
+    with pytest.raises(NotImplementedError, match="13f"):
+        lm.make_prefill_step(registry.smoke_config("recurrentgemma-2b"), mesh=mesh)
     with pytest.raises(ValueError, match="mode"):
         T.forward(cfg, pp, batch, mode="score")
 

@@ -146,9 +146,18 @@ def test_moe_ffn_bf16_routes_as_the_reference():
 
 
 def test_moe_ffn_refuses_a_mesh():
+    """The expert-parallel branch is ported (tests/test_torch_mesh_lm.py);
+    the FSDP gather of training stays ROADMAP item 13f, and a mesh whose
+    "model" axis does not split the experts is refused."""
+    from repro_torch.launch.mesh import make_mesh
+
     params = {k: _t(v) for k, v in _moe_params(0, 8, 8, 4).items()}
-    with pytest.raises(NotImplementedError, match="13d"):
-        M.moe_ffn(params, torch.zeros((1, 2, 8)), M.MoEConfig(4, 2), mesh=object())
+    mesh = make_mesh((1, 8), ("data", "model"), devices=["cpu"] * 8)
+    with pytest.raises(NotImplementedError, match="13f"):
+        M.moe_ffn(params, torch.zeros((1, 2, 8)), M.MoEConfig(4, 2), mesh=mesh,
+                  fsdp_gather=True)
+    with pytest.raises(ValueError, match="split"):
+        M.moe_ffn(params, torch.zeros((1, 2, 8)), M.MoEConfig(4, 2), mesh=mesh)
 
 
 # ---------------------------------------------------------------------------

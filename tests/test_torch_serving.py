@@ -306,12 +306,20 @@ def test_engine_reports_spans_and_metrics():
 
 
 def test_engine_refuses_mesh_and_needs_a_device():
+    """The recurrent archs on a mesh are ROADMAP item 13f; a mesh engine
+    takes its devices from the mesh; without either it needs the card."""
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4)
     cfg = registry.smoke_config("phi3-mini-3.8b")
     params = T.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="13d"):
-        engine.ServeEngine(cfg, params, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="13d"):
-        engine.ServeEngine(cfg, params, device="cpu", serve_seq_shard=True)
+    for arch in ("recurrentgemma-2b", "rwkv6-7b"):
+        rcfg = registry.smoke_config(arch)
+        with pytest.raises(NotImplementedError, match="13f"):
+            engine.ServeEngine(rcfg, T.init_params(rcfg, torch.Generator().manual_seed(0)),
+                               mesh=mesh)
+    with pytest.raises(ValueError, match="device"):
+        engine.ServeEngine(cfg, params, device="cpu", mesh=mesh)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             engine.ServeEngine(cfg, params)

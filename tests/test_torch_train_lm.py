@@ -193,9 +193,9 @@ def test_train_step_remat_on_and_off_equal():
 
 def test_mesh_and_pod_sync_raise_with_their_roadmap_item():
     cfg = registry.smoke_config("phi3-mini-3.8b")
-    with pytest.raises(NotImplementedError, match="13d"):
+    with pytest.raises(NotImplementedError, match="13f"):
         lm.make_train_step(cfg, opt.OptConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="13d"):
+    with pytest.raises(NotImplementedError, match="13f"):
         lm.make_train_step(cfg, opt.OptConfig(), pod_compress=True)
 
 

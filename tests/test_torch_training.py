@@ -344,7 +344,7 @@ def test_lm_loss_mask_clamp_and_chunk_checks():
         assert torch.equal(nomask, ones)
         with pytest.raises(ValueError, match="divide"):
             lm.lm_loss(cfg, pp, b, fused_loss=True, loss_chunk=5)
-    with pytest.raises(NotImplementedError, match="13d"):
+    with pytest.raises(NotImplementedError, match="13f"):
         lm.lm_loss(cfg, pp, b, mesh=object())
 
 
