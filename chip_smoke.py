@@ -192,12 +192,33 @@ Phases, in order; any failure stops the run with a non-zero exit:
    engines.  The reference computes this path with ``einsum``s under
    ``shard_map``, outside any Pallas kernel: the phase checks that it
    launches none of the four kernels.
+17. mesh LM training, the pod sync and the ``mlp_2d`` serving layout
+   (``mesh_training``) on the same data=2 x model=2 mesh: phi3-mini-3.8b at
+   full width, 2 layers, B=4, S=1024, the state laid out by the train
+   policy (FSDP: d_model over "data", gathered a layer at a time before
+   use): one AdamW and one Adafactor mesh step against the one-device step
+   (float32 forward: loss rel 1e-4, params atol 2.5e-3 rtol 1e-3; float64
+   params within 1e-7); the timed mesh step in phase 15's configuration
+   (16 of 32 layers, bf16, remat, fused loss, 4 x 2048 tokens in 2
+   microbatches: ms a step, tokens/s, mfu, the allocator's peak against the
+   laid-out states and one layer's gathered weights, beside phase 15's);
+   olmoe-1b-7b at full width, 2 layers, no pair dropped (the experts' FSDP
+   gather) against one device; on pod=2 x data=2 x model=2,
+   ``compressed_pod_psum`` at phi3-mini's gradient shapes (within 2 x scale)
+   and a ``pod_compress=True`` step; mistral-large-123b at full width in its
+   serving layout (``mlp_2d``, the attention projections over (data,
+   model), the cache's sequence over model): float32 at 2 layers against
+   one device (1e-4) and the bf16 engines at 4 of 88 layers (phase 16's
+   gates, each cell's bytes, ms per decode step).  The path launches none of
+   the four kernels, as the reference's ``jax.grad`` and partitioner reach
+   none.
 
 The second-to-last line of output is a JSON ``kernels`` record (with each
 kernel's ``launches_mesh``, its launches in phase 11's runs,
 ``launches_entry_points``, its launches in phase 12's runs,
 ``launches_lm``, its launches in phase 13's full-width factorization,
-``launches_mesh_lm``, its launches in phase 16 (none), and
+``launches_mesh_lm``, its launches in phase 16 (none),
+``launches_mesh_train``, its launches in phase 17 (none), and
 for the ALS kernels ``max_abs_err_mesh``, their error against the plain
 versions at 11b's shapes, ``max_abs_err_lm`` at phase 13's, and
 ``max_abs_err_entry_points`` for the three training kernels at phase 12's
@@ -1150,6 +1171,57 @@ MB_ATOL, MB_RTOL = 2.5e-3, 1e-3
 #: layers (all 32 need ~84 GB of AdamW state, more than the card's 80 GB)
 TRAIN_LAYERS = 16
 TRAIN_B, TRAIN_S, TRAIN_MB = 4, 2048, 2
+#: the timed step's first update, from the same weights and batch on one
+#: device (phase 15) and on the mesh (phase 17): AdamW's first step moves a
+#: parameter by about lr against its gradient's sign, so the first and
+#: last layers' ``wq`` and ``w_down`` and the head show the gradient's
+#: signs.  A 16-layer random bf16 model amplifies rounding, so the mesh is
+#: held beside a witness on one device, the first step with the mesh's
+#: row-parallel products (:class:`_RowSplit`: ``wo`` and ``w_down`` in
+#: model=2 blocks, each rounded to bf16, summed in float32): each sample's
+#: share of moves of one sign on both sides at most ``FIRST_SIGN_SLACK``
+#: under the witness's, and the grad norm within ``FIRST_NORM_REL`` or 3x
+#: the witness's distance (a gradient tp = 2 times too large is 1.0 off,
+#: one from half the rows about 0.5)
+UPDATE_SAMPLE = ("wq", "w_down")
+FIRST_NORM_REL = 0.1
+FIRST_SIGN_SLACK = 0.05
+#: and the mesh against that witness itself: the first update's moves of
+#: one sign in ``WITNESS_SIGN_AGREE`` of each sample's entries or more, the
+#: grad norms within ``WITNESS_NORM_REL`` (0.9898 and 0.30 % read on an
+#: H100 when these were set)
+WITNESS_SIGN_AGREE = 0.95
+WITNESS_NORM_REL = 0.01
+
+
+def _update_sample(params) -> dict:
+    """Float32 copies on the host of :data:`UPDATE_SAMPLE`'s first and last
+    layers and of the head, from a tree of tensors or of ``Sharded``
+    leaves."""
+    import torch
+
+    from repro_torch.distributed.sharding import Sharded
+
+    def whole(t):
+        return t.unshard() if isinstance(t, Sharded) else t
+
+    blk = params["blocks"][0]["0"]
+    out = {}
+    for n in UPDATE_SAMPLE:
+        t = whole(blk[n])
+        out[f"{n}[0]"], out[f"{n}[-1]"] = (t[i].to("cpu", torch.float32, copy=True)
+                                           for i in (0, -1))
+        del t
+    out["head"] = whole(params.get("lm_head", params["embed"])).to("cpu", torch.float32,
+                                                                   copy=True)
+    return out
+
+
+def _sign_agreement(before: dict, after_a: dict, after_b: dict) -> dict:
+    """Each sample's share of entries whose moves from ``before`` have one
+    sign in ``after_a`` and in ``after_b``."""
+    return {k: ((after_a[k] - before[k]).sign() == (after_b[k] - before[k]).sign())
+            .float().mean().item() for k in before}
 
 
 def _matmul_params(cfg, params) -> int:
@@ -1319,10 +1391,21 @@ def lm_training(torch, wrappers: dict, dev) -> dict:
     # (c) the timed step: phi3-mini at full width, TRAIN_LAYERS layers
     cfg16 = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
     oc = opt.OptConfig(lr=3e-4, grad_clip=1.0)
+    batch = to_dev(next(synthetic_lm_batches(cfg16.vocab, TRAIN_S, TRAIN_B, seed=0)))
+    # the witness of phase 17's comparison: the first step with the mesh's
+    # row-parallel products (``wo`` and ``w_down`` in model=2 blocks)
+    st = lm.init_train_state(cfg16, torch.Generator(device=dev).manual_seed(0), oc)
+    before = _update_sample(st.params)
+    with _RowSplit(2):
+        st, mw = lm.make_train_step(cfg16, oc, microbatch=TRAIN_MB, remat=True,
+                                    fused_loss=True)(st, batch)
+    first = {"before": before, "witness": _update_sample(st.params),
+             "witness_grad_norm": mw["grad_norm"].item(), "witness_loss": mw["loss"].item()}
+    del st, mw
+    torch.cuda.empty_cache()
     st = lm.init_train_state(cfg16, torch.Generator(device=dev).manual_seed(0), oc)
     n_all = sum(t.numel() for t in T.tree_leaves(st.params))
     n_mm = _matmul_params(cfg16, st.params)
-    batch = to_dev(next(synthetic_lm_batches(cfg16.vocab, TRAIN_S, TRAIN_B, seed=0)))
     step = lm.make_train_step(cfg16, oc, microbatch=TRAIN_MB, remat=True, fused_loss=True)
     # f32 params, Adam's m and v, the accumulated grads, one microbatch's
     # grads and the bf16 copy of the weights
@@ -1330,6 +1413,8 @@ def lm_training(torch, wrappers: dict, dev) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     st, m0 = step(st, batch)                         # warm-up
+    out["first_update"] = dict(first, after=_update_sample(st.params))
+    del before, first
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     step_losses, norms = [], []
     ev[0].record()
@@ -1359,7 +1444,8 @@ def lm_training(torch, wrappers: dict, dev) -> dict:
     out["timed"] = {"ms": ms, "ms_mean": ms_mean, "tokens_per_s": tokens / ms_mean * 1e3,
                     "mfu": mfu, "peak_bytes": peak, "predicted_bytes": predicted,
                     "losses": step_losses, "grad_norms": norms, "params": n_all,
-                    "matmul_params": n_mm}
+                    "matmul_params": n_mm, "warmup_loss": m0["loss"].item(),
+                    "warmup_grad_norm": m0["grad_norm"].item()}
     # one more step under torch.profiler: where the step's device time goes
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1656,8 +1742,9 @@ def _engine_flips(log1, log2, n_slots, rule):
 class _RowSplit:
     """The single-device forward with the attention's ``wo`` and the swiglu
     FFN's ``w_down`` contracted in ``parts`` blocks of their input dim,
-    summed in ascending order: the mesh's row-parallel sums without the
-    mesh."""
+    each block's product at the compute dtype, summed in ascending order
+    in float32 (float64 stays float64) and cast once: the mesh's
+    row-parallel sums (``collectives.all_reduce``) without the mesh."""
 
     def __init__(self, parts: int):
         from repro_torch.models import layers as L
@@ -1670,11 +1757,14 @@ class _RowSplit:
         T, L, n = self.T, self.L, self.parts
 
         def split_sum(a, w):
+            import torch
+
             k = a.shape[-1] // n
-            out = a[..., :k] @ w[:k]
+            wide = torch.promote_types(a.dtype, torch.float32)
+            out = (a[..., :k] @ w[:k]).to(wide)
             for i in range(1, n):
-                out = out + a[..., i * k:(i + 1) * k] @ w[i * k:(i + 1) * k]
-            return out
+                out = out + (a[..., i * k:(i + 1) * k] @ w[i * k:(i + 1) * k]).to(wide)
+            return out.to(a.dtype)
 
         def attn_out(out, wo):
             return split_sum(out.reshape(out.shape[0], out.shape[1], -1),
@@ -1712,59 +1802,136 @@ class _UlpShift:
             t.nextafter_(t.new_full((), -math.inf))
 
 
+class _MeshOrder:
+    """The single-device forward in the summation order of a mesh whose
+    weights are whole after their d_model gathers (the ``mlp_2d`` layout
+    with replicated heads), on one device: the swiglu FFN in ``parts``
+    column blocks of ``w_gate``/``w_up`` with the matching row blocks of
+    ``w_down``, each block a contiguous operand, the products summed in
+    ascending order (the "model" cells and their fold); with ``seq`` the
+    decode attention over ``parts`` sequence slices of the cache, combined
+    by flash-decode's own ``_partial_decode`` and ``combine``.
+    :func:`_mesh_vs_single` runs it on each data block of the batch rows
+    on its own, as the mesh's data cells run them."""
+
+    def __init__(self, parts: int, seq: bool):
+        from repro_torch.models import layers as L
+        from repro_torch.models import transformer as T
+
+        self.T, self.L, self.parts, self.seq = T, L, parts, seq
+        self.saved = (T._ffn_partial, L.attention_decode)
+
+    def __enter__(self):
+        from repro_torch.distributed import flash_decode as fd
+
+        n, ffn0 = self.parts, self.saved[0]
+
+        def ffn(cfg, p, x):
+            check(cfg.mlp == "swiglu" and cfg.moe is None, f"_MeshOrder: a {cfg.mlp} FFN")
+            f = p["w_gate"].shape[-1] // n
+            out = None
+            for i in range(n):
+                cols = slice(i * f, (i + 1) * f)
+                y = ffn0(cfg, dict(p, w_gate=p["w_gate"][:, cols].contiguous(),
+                                   w_up=p["w_up"][:, cols].contiguous(),
+                                   w_down=p["w_down"][cols].contiguous()), x)
+                out = y if out is None else out + y
+            return out
+
+        def attention_decode(q, k, v, length, *, window=None):
+            check(window is None, "_MeshOrder: a windowed decode")
+            s = k.shape[1] // n
+            parts = [fd._partial_decode(q, k[:, i * s:(i + 1) * s].contiguous(),
+                                        v[:, i * s:(i + 1) * s].contiguous(), length, i * s)
+                     for i in range(n)]
+            return fd.combine(parts, q.device).reshape(q.shape).to(q.dtype)
+
+        self.T._ffn_partial = ffn
+        if self.seq:
+            self.L.attention_decode = attention_decode
+        return self
+
+    def __exit__(self, *exc):
+        self.T._ffn_partial, self.L.attention_decode = self.saved
+
+
 def _check_engine_flips(label, flips, dmax, scale):
-    """Phase 16's gate on two bf16 engines compared call by call."""
+    """Phases 16 and 17's gate on two bf16 engines compared call by call."""
     check(dmax <= MESH_BF16_REL * scale,
-          f"phase 16 {label}: the mesh engine's logits are {dmax} from one device's "
+          f"{label}: the mesh engine's logits are {dmax} from one device's "
           f"(bound {MESH_BF16_REL}x the largest logit {scale})")
     check(all(f[3] < MESH_NEAR_TIE for f in flips),
-          f"phase 16 {label}: a flip at a margin of {MESH_NEAR_TIE} or more: {flips}")
+          f"{label}: a flip at a margin of {MESH_NEAR_TIE} or more: {flips}")
 
 
 def _mesh_vs_single(torch, cfg, params, mesh, dtype, tokens, steps, max_seq, seq=False,
-                    witness=False):
+                    witness=False, mlp_2d=False, order=False):
     """Prefill (cache at ``max_seq``) and ``steps`` greedy decode steps on
     one device and on ``mesh`` (parameters laid out by the serve policy)
     from the same tokens in ``dtype``.  Returns the largest last-position
-    logit difference over the calls, whether every token agreed, the
-    largest single-device logit, the mesh cache's cell shape and the
-    calls' seconds (single, mesh).  ``witness``: also the single device
-    under :class:`_RowSplit` ("model" blocks) and under :class:`_UlpShift`:
-    their largest differences from the plain single device, and the row
-    split's from the mesh."""
+    logit difference over the calls (and over the prefill call alone),
+    whether every token agreed, the largest single-device logit, the mesh
+    cache's cell shape and the calls' seconds (single, mesh).  ``witness``:
+    also the single device under :class:`_RowSplit` ("model" blocks) and
+    under :class:`_UlpShift`: their largest differences from the plain
+    single device, and the row split's from the mesh.  ``order``: also the
+    single device under :class:`_MeshOrder` on each block of the batch
+    rows that the data axes give the mesh's cells: its largest differences
+    from the plain single device and from the mesh.  ``mlp_2d``: the
+    parameters in the serve policy's ``mlp_2d`` layout."""
     import contextlib
+
+    import numpy as np
 
     from repro_torch.distributed import sharding as shd
     from repro_torch.models import lm
 
     kw = dict(compute_dtype=dtype)
-    sp = shd.shard_params(cfg, params, mesh, serve_seq_shard=seq)
-    res = {}
-    runs = [("single", params, {}, contextlib.nullcontext()),
-            ("mesh", sp, dict(mesh=mesh, serve_seq_shard=seq), contextlib.nullcontext())]
-    if witness:
-        runs += [("witness", params, {}, _RowSplit(mesh.shape["model"])),
-                 ("ulp", params, {}, _UlpShift(params))]
-    for where, p, mk, split in runs:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with _LogitTap() as tap, split:
-            tok, cache = lm.make_prefill_step(cfg, max_seq=max_seq, **mk, **kw)(p, {"tokens": tokens})
+    sp = shd.shard_params(cfg, params, mesh, serve_seq_shard=seq, mlp_2d=mlp_2d)
+
+    def run(p, mk, ctx, toks_in):
+        with _LogitTap() as tap, ctx:
+            tok, cache = lm.make_prefill_step(cfg, max_seq=max_seq, **mk, **kw)(
+                p, {"tokens": toks_in})
             dec = lm.make_decode_step(cfg, **mk, **kw)
-            lens = torch.full((tokens.shape[0],), tokens.shape[1], dtype=torch.int32,
-                              device=tokens.device)
+            lens = torch.full((toks_in.shape[0],), toks_in.shape[1], dtype=torch.int32,
+                              device=toks_in.device)
             toks = [tok]
             for _ in range(steps):
                 tok, cache, lens = dec(p, cache, tok, lens)
                 toks.append(tok)
+        return tap.logits, torch.stack(toks).cpu(), cache
+
+    tp = mesh.shape["model"]
+    res = {}
+    runs = [("single", params, {}, contextlib.nullcontext()),
+            ("mesh", sp, dict(mesh=mesh, serve_seq_shard=seq), contextlib.nullcontext())]
+    if witness:
+        runs += [("witness", params, {}, _RowSplit(tp)), ("ulp", params, {}, _UlpShift(params))]
+    for where, p, mk, ctx in runs:
         torch.cuda.synchronize()
-        res[where] = (tap.logits, torch.stack(toks).cpu(), cache, time.perf_counter() - t0)
-    def dist(a, b):
-        return max(float(abs(x - y).max()) for x, y in zip(res[a][0], res[b][0]))
+        t0 = time.perf_counter()
+        r = run(p, mk, ctx, tokens)
+        torch.cuda.synchronize()
+        res[where] = r + (time.perf_counter() - t0,)
+    if order:
+        B = tokens.shape[0]
+        dp = math.prod(mesh.shape[a] for a in shd.dp_axes(mesh))
+        rows = B // dp if B % dp == 0 else B
+        t0 = time.perf_counter()
+        parts = [run(params, {}, _MeshOrder(tp, seq), tokens[r:r + rows])
+                 for r in range(0, B, rows)]
+        torch.cuda.synchronize()
+        res["order"] = ([np.concatenate(ls) for ls in zip(*(x[0] for x in parts))],
+                        torch.cat([x[1] for x in parts], dim=1), None,
+                        time.perf_counter() - t0)
+
+    def dist(a, b, calls=slice(None)):
+        return max(float(abs(x - y).max()) for x, y in zip(res[a][0][calls], res[b][0][calls]))
 
     scale = max(float(abs(a).max()) for a in res["single"][0])
     k0 = res["mesh"][2]["blocks"][0]["0"]["k"]
-    out = {"max_abs": dist("single", "mesh"),
+    out = {"max_abs": dist("single", "mesh"), "prefill_max_abs": dist("single", "mesh", slice(1)),
            "tokens_equal": bool(torch.equal(res["single"][1], res["mesh"][1])),
            "max_logit": scale, "cache_cell_shape": list(k0.cells[0].shape),
            "seconds": [res["single"][3], res["mesh"][3]],
@@ -1774,6 +1941,10 @@ def _mesh_vs_single(torch, cfg, params, mesh, dtype, tokens, steps, max_seq, seq
                    ulp_max_abs=dist("single", "ulp"),
                    mesh_vs_witness=dist("mesh", "witness"),
                    witness_tokens_equal=bool(torch.equal(res["single"][1], res["witness"][1])))
+    if order:
+        out.update(order_max_abs=dist("single", "order"), mesh_vs_order=dist("mesh", "order"),
+                   mesh_vs_order_prefill=dist("mesh", "order", slice(1)),
+                   order_tokens_equal=bool(torch.equal(res["mesh"][1], res["order"][1])))
     return out
 
 
@@ -1916,7 +2087,7 @@ def mesh_serving(torch, wrappers: dict, dev) -> dict:
         f"device's top-2 margin) {flips}; largest logit difference on the slots compared "
         f"{dmax:.4g} (largest logit {scale:.4g}; bound {MESH_BF16_REL}x it, flips under a "
         f"margin of {MESH_NEAR_TIE})")
-    _check_engine_flips("phi3-mini-3.8b", flips, dmax, scale)
+    _check_engine_flips("phase 16 phi3-mini-3.8b", flips, dmax, scale)
     log(f"  phi3-mini-3.8b bytes a cell (data, model) = (0,0) (0,1) (1,0) (1,1): weights "
         f"{by_cell['weights']} (layout {by_cell['weights_layout']}), cache {by_cell['cache']} "
         f"(layout {by_cell['cache_layout']}); on the card: weights {by_cell['weights_on_card']}, "
@@ -1996,7 +2167,7 @@ def mesh_serving(torch, wrappers: dict, dev) -> dict:
         f"engines at capacity factor {co2.moe.capacity_factor} (no drops), call by call: flips "
         f"(call, slot, request, margin) {flips_o}, largest logit difference on the slots "
         f"compared {dmax_o:.4g} (largest logit {scale_o:.4g})")
-    _check_engine_flips("olmoe-1b-7b no-drop", flips_o, dmax_o, scale_o)
+    _check_engine_flips("phase 16 olmoe-1b-7b no-drop", flips_o, dmax_o, scale_o)
     check(ro["max_abs"] <= MOE_TOL and ro["tokens_equal"],
           f"phase 16 olmoe float32 EP mesh disagrees with one device: {ro}")
     out["seconds"]["olmoe"] = time.perf_counter() - t0
@@ -2005,6 +2176,517 @@ def mesh_serving(torch, wrappers: dict, dev) -> dict:
     log(f"phase 16 launches of the four kernels on the mesh serving path: {out['launches']}")
     check(not any(out["launches"].values()),
           "phase 16: the mesh serving path launched a kernel it should not reach")
+    out["seconds"]["total"] = time.perf_counter() - t_start
+    return out
+
+
+#: phase 17: mistral-large-123b's engine runs this many of its 88 layers
+#: in bf16 (its weights take 1.38 B parameters a layer), the float32 check 2
+MISTRAL_LAYERS = 4
+#: the int8 pod sync against its input (tests/test_distributed.py:245)
+POD_SCALES = 2
+#: bf16 losses of one model on two layouts (tests/test_torch_training.py)
+BF16_LOSS_REL = 1e-3
+#: the mesh step trains: its loss falls over this many AdamW steps on one
+#: batch (phi3-mini at full width, 2 layers)
+FALL_STEPS, FALL_LR = 3, 1e-4
+
+
+class _ForwardAt:
+    """``transformer.forward`` at ``dtype`` while inside: ``lm_loss``, as
+    the reference's, does not pass its ``compute_dtype`` on, so the
+    float32 and float64 checks of a train step patch the forward (as
+    tests/test_torch_training.py's ``f32_forward`` does)."""
+
+    def __init__(self, dtype):
+        import functools
+
+        from repro_torch.models import transformer as T
+
+        self.T, self.orig = T, T.forward
+        self.patched = functools.partial(T.forward, compute_dtype=dtype)
+
+    def __enter__(self):
+        self.T.forward = self.patched
+        return self
+
+    def __exit__(self, *exc):
+        self.T.forward = self.orig
+
+
+def mesh_training(torch, wrappers: dict, dev, single_timed: dict, single_first: dict) -> dict:
+    """Phase 17: mesh LM training, the pod sync and the ``mlp_2d`` serving
+    layout on a data=2 x model=2 mesh whose four cells share the card
+    (results, launches and the host's cost of four cells; not scaling).
+
+    (a) phi3-mini-3.8b at full width, 2 layers, B=4, S=1024, the state laid
+    out by the train policy (FSDP: d_model over "data"): one AdamW mesh
+    step against the one-device step, float32 forward at the microbatch
+    tolerances and float64 params within ``F64_TOL``; one Adafactor step
+    the same way in float32; (b) the timed mesh step with phase 15's
+    configuration (``TRAIN_LAYERS`` layers, bf16, remat, fused loss, 4 x
+    2048 tokens in 2 microbatches): ms a step, tokens/s, mfu, the
+    allocator's peak against the laid-out states and one layer's gathered
+    bf16 weights, beside phase 15's one-device step ``single_timed``, and
+    its first step held to phase 15's from the same weights and batch
+    (loss, grad norm, the signs of the first update on ``single_first``'s
+    sample);
+    (c) olmoe-1b-7b at full width, 2 of 16 layers, at a capacity that drops
+    nothing: the mesh step (its experts' FSDP gather) against one device;
+    (d) on pod=2 x data=2 x model=2, eight cells: ``compressed_pod_psum`` at
+    phi3-mini's full-width gradient shapes (2 layers) within ``POD_SCALES``
+    x scale a leaf, and a ``pod_compress=True`` step whose sync moves its
+    gradient within that bound; (e) mistral-large-123b at full width in its
+    ``ArchSpec``'s serving layout (``mlp_2d`` with the attention
+    projections over ("data", "model"), the cache's sequence over "model"):
+    float32 at 2 layers against one device in the mesh's summation order
+    (:class:`_MeshOrder`) and plain, float64 at 2 layers, then the bf16
+    engines at ``MISTRAL_LAYERS`` layers under phase 16's gates, each
+    cell's bytes against the layout's count, ms per decode step.  The
+    reference trains and serves these with ``jax.grad`` and ``einsum``s
+    under its partitioner, outside any Pallas kernel: the phase checks that
+    it launches none of the four kernels.
+    """
+    import dataclasses
+
+    import numpy as np
+
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))           # benchmarks_torch
+    from benchmarks_torch.common import PEAK_BF16_FLOPS
+    from repro_torch.configs import registry
+    from repro_torch.data import synthetic_lm_batches
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as opt
+
+    t_start = time.perf_counter()
+    for w in wrappers.values():
+        w.launches = 0
+    cards = [f"cuda:{dev.index or 0}"]
+    mesh = make_mesh((2, 2), ("data", "model"), devices=cards * 4)
+    out = {"mesh": mesh.describe(), "seconds": {}}
+
+    def to_dev(batch):
+        return {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in batch.items()}
+
+    def clone(tree):
+        return T.tree_map(lambda _, t: t.clone(), tree)
+
+    def clone_state(st):
+        return lm.TrainState(clone(st.params), type(st.opt)(*clone(list(st.opt[:2])),
+                                                            st.opt.step.clone()), st.step.clone())
+
+    def as_dtype(st, dtype):
+        cast = lambda tree: T.tree_map(lambda _, t: t.to(dtype), tree)  # noqa: E731
+        return lm.TrainState(cast(st.params), type(st.opt)(*cast(list(st.opt[:2])),
+                                                           st.opt.step.clone()), st.step.clone())
+
+    def laid_out(cfg, st, m):
+        return shd.shard_train_state(cfg, clone_state(st), m, shd.train_policy_for(cfg, m))
+
+    def param_gap(a, b, atol, rtol):
+        gap, bad = 0.0, 0
+        for x, y in zip(T.tree_leaves(a), T.tree_leaves(shd.unshard_tree(b))):
+            d = (x - y).abs()
+            gap = max(gap, d.max().item())
+            bad += int((d > atol + rtol * x.abs()).sum())
+        return gap, bad
+
+    def step_pair(cfg, st, batch, oc, dtype, m=mesh, **kw):
+        """One step on one device and one on ``m`` from ``st``: the losses
+        and (single params, mesh params)."""
+        sm = laid_out(cfg, st, m)
+        with _ForwardAt(dtype):          # the one-device step updates ``st`` in place
+            s1, m1 = lm.make_train_step(cfg, oc, compute_dtype=dtype, **kw)(st, batch)
+            s2, m2 = lm.make_train_step(cfg, oc, mesh=m, compute_dtype=dtype, **kw)(sm, batch)
+        return m1["loss"].item(), m2["loss"].item(), s1.params, s2.params
+
+    # (a) phi3-mini at full width, 2 layers
+    t0 = time.perf_counter()
+    full = registry.get_arch("phi3-mini-3.8b").model
+    cfg2 = dataclasses.replace(full, n_layers=2)
+    b2 = to_dev(next(synthetic_lm_batches(cfg2.vocab, 1024, 4, seed=1)))
+    checks = {}
+    for name in ("adamw", "adafactor"):
+        oc = opt.OptConfig(name=name, lr=1e-3)
+        st = lm.init_train_state(cfg2, torch.Generator(device=dev).manual_seed(0), oc)
+        l1, l2, p1, p2 = step_pair(cfg2, st, b2, oc, torch.float32)
+        gap, bad = param_gap(p1, p2, MB_ATOL, MB_RTOL)
+        checks[name] = {"loss_single": l1, "loss_mesh": l2, "loss_rel": abs(l2 - l1) / abs(l1),
+                        "params_max_abs": gap, "params_outside": bad}
+        del p1, p2
+        if name == "adamw":
+            st64 = as_dtype(st, torch.float64)
+            del st
+            l1, l2, p1, p2 = step_pair(cfg2, st64, b2, oc, torch.float64)
+            gap64, _ = param_gap(p1, p2, 0.0, 0.0)
+            checks["adamw_f64"] = {"loss_single": l1, "loss_mesh": l2, "params_max_abs": gap64}
+            del st64, p1, p2
+        else:
+            del st
+        torch.cuda.empty_cache()
+    # bf16, the timed step's dtype, at 2 layers: the first AdamW update's
+    # moves of one sign on the mesh and on one device, leaf by leaf
+    # (and on one device with the mesh's row-parallel products, the witness)
+    oc = opt.OptConfig(lr=1e-3)
+    st = lm.init_train_state(cfg2, torch.Generator(device=dev).manual_seed(0), oc)
+    p0 = clone(st.params)
+    sw = clone_state(st)
+    l1, l2, p1, p2 = step_pair(cfg2, st, b2, oc, torch.bfloat16)
+    with _RowSplit(2):
+        sw, mw = lm.make_train_step(cfg2, oc)(sw, b2)
+
+    def signs(a, b):
+        return [((x - z).sign() == (y - z).sign()).float().mean().item()
+                for z, x, y in zip(T.tree_leaves(p0), T.tree_leaves(a), T.tree_leaves(b))]
+    sm, sw_ = signs(shd.unshard_tree(p2), p1), signs(sw.params, p1)
+    checks["adamw_bf16"] = {"loss_single": l1, "loss_mesh": l2, "loss_rel": abs(l2 - l1) / abs(l1),
+                            "loss_witness": mw["loss"].item(), "sign_agreement": sm,
+                            "witness_sign_agreement": sw_,
+                            "sign_shortfall": max(w - m for m, w in zip(sm, sw_))}
+    del st, sw, mw, p0, p1, p2
+    torch.cuda.empty_cache()
+    # the mesh step trains: FALL_STEPS AdamW steps on one batch at 2 layers
+    oc = opt.OptConfig(lr=FALL_LR)
+    st = laid_out(cfg2, lm.init_train_state(cfg2, torch.Generator(device=dev).manual_seed(0), oc),
+                  mesh)
+    step = lm.make_train_step(cfg2, oc, mesh=mesh, fused_loss=True)
+    falls = []
+    for _ in range(FALL_STEPS):
+        st, m = step(st, b2)
+        falls.append(m["loss"].item())
+    out["phi3_2_layers_falls"] = falls
+    del st, step
+    torch.cuda.empty_cache()
+    out["phi3_2_layers"] = checks
+    log(f"phase 17 mesh {out['mesh']}; phi3-mini-3.8b full width (d={full.d_model}, vocab "
+        f"{full.padded_vocab}), 2 layers, B=4, S=1024, the train policy's layout (d_model over "
+        f"data, heads/ff/vocab over model): one step on the mesh against one device: "
+        + "; ".join(f"{k} loss {v['loss_mesh']:.6f} vs {v['loss_single']:.6f}"
+                    + (f" (rel {v['loss_rel']:.3g}), params max|d| {v['params_max_abs']:.3g}, "
+                       f"{v['params_outside']} outside atol {MB_ATOL} rtol {MB_RTOL}"
+                       if "params_outside" in v else f", params max|d| "
+                       f"{v['params_max_abs']:.3g} (tolerance {F64_TOL})" if "params_max_abs" in v
+                       else f" (rel {v['loss_rel']:.3g}, tolerance {BF16_LOSS_REL}), the first "
+                       f"update's moves of one sign as one device's, leaf by leaf: mesh "
+                       + ", ".join(f"{x:.4f}" for x in v["sign_agreement"])
+                       + "; one device with the row-parallel products "
+                       + ", ".join(f"{x:.4f}" for x in v["witness_sign_agreement"])
+                       + f" (gate: the mesh at most {FIRST_SIGN_SLACK} under it)")
+        for k, v in checks.items()))
+    log(f"  {FALL_STEPS} bf16 AdamW mesh steps (lr {FALL_LR}, fused loss) on that batch: losses "
+        + ", ".join(f"{x:.6f}" for x in falls))
+    for name in ("adamw", "adafactor"):
+        check(checks[name]["loss_rel"] <= MB_LOSS_REL and checks[name]["params_outside"] == 0,
+              f"phase 17 phi3 {name} mesh step disagrees with one device: {checks[name]}")
+    check(all(b < a for a, b in zip(falls, falls[1:])),
+          f"phase 17: the 2-layer mesh steps' loss did not fall: {falls}")
+    check(checks["adamw_f64"]["params_max_abs"] <= F64_TOL,
+          f"phase 17 phi3 float64 mesh step: {checks['adamw_f64']}")
+    check(checks["adamw_bf16"]["loss_rel"] <= BF16_LOSS_REL
+          and checks["adamw_bf16"]["sign_shortfall"] <= FIRST_SIGN_SLACK,
+          f"phase 17 phi3 bf16 mesh step: {checks['adamw_bf16']}")
+    out["seconds"]["phi3_2_layers"] = time.perf_counter() - t0
+
+    # (b) the timed mesh step: phase 15's configuration
+    t0 = time.perf_counter()
+    cfg16 = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    oc = opt.OptConfig(lr=3e-4, grad_clip=1.0)
+    params = T.init_params(cfg16, torch.Generator(device=dev).manual_seed(0))
+    n_all = sum(t.numel() for t in T.tree_leaves(params))
+    n_mm = _matmul_params(cfg16, params)
+    layer_bf16 = 2 * sum(t.numel() // t.shape[0] for grp in params["blocks"]
+                         for blk in grp.values() for t in blk.values())
+    sp = shd.shard_params(cfg16, params, mesh, policy=shd.train_policy_for(cfg16, mesh))
+    del params
+    torch.cuda.empty_cache()
+    st = lm.TrainState(sp, opt.adam_init(sp), torch.zeros((), dtype=torch.int32, device=dev))
+    del sp
+    state_bytes = sum(shd.device_bytes(st).values())
+    by_cell = shd.cell_bytes(st, mesh)
+    check(by_cell == shd.layout_bytes(st, mesh), "phase 17: the state's cell bytes differ "
+          "from its layout's count")
+    batch = to_dev(next(synthetic_lm_batches(cfg16.vocab, TRAIN_S, TRAIN_B, seed=0)))
+    step = lm.make_train_step(cfg16, oc, mesh=mesh, microbatch=TRAIN_MB, remat=True,
+                              fused_loss=True)
+    before = _update_sample(st.params)
+    check(all(torch.equal(before[k], single_first["before"][k]) for k in before),
+          "phase 17: the timed mesh step does not start from phase 15's weights")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    st, m0 = step(st, batch)                         # warm-up
+    after = _update_sample(st.params)
+    agree = _sign_agreement(before, after, single_first["after"])
+    agree_w = _sign_agreement(before, single_first["witness"], single_first["after"])
+    agree_mw = _sign_agreement(before, after, single_first["witness"])
+    del after
+    del before
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    losses, norms = [], []
+    ev[0].record()
+    for i in range(3):
+        st, m = step(st, batch)
+        ev[i + 1].record()
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+    torch.cuda.synchronize()
+    ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    peak = torch.cuda.max_memory_allocated()
+    losses, norms = [x.item() for x in losses], [x.item() for x in norms]
+    m0_loss, m0_norm = m0["loss"].item(), m0["grad_norm"].item()
+    n1, nw = single_timed["warmup_grad_norm"], single_first["witness_grad_norm"]
+    norm_bound = max(FIRST_NORM_REL, 3 * abs(nw - n1) / n1)
+    ln_v = math.log(cfg16.vocab)
+    tokens = TRAIN_B * TRAIN_S
+    ms_mean = sum(ms) / len(ms)
+    mfu = 6 * n_mm * tokens / (ms_mean / 1e3 * PEAK_BF16_FLOPS)
+    out["timed"] = {"ms": ms, "ms_mean": ms_mean, "tokens_per_s": tokens / ms_mean * 1e3,
+                    "mfu": mfu, "peak_bytes": peak, "state_bytes": state_bytes,
+                    "state_bytes_by_cell": by_cell, "layer_gathered_bf16_bytes": layer_bf16,
+                    "losses": losses, "grad_norms": norms, "params": n_all,
+                    "matmul_params": n_mm, "warmup_loss": m0_loss,
+                    "warmup_grad_norm": m0_norm, "single_device_warmup_grad_norm": n1,
+                    "warmup_loss_minus_ln_vocab": m0_loss - ln_v,
+                    "single_device_warmup_loss_minus_ln_vocab":
+                        single_timed["warmup_loss"] - ln_v,
+                    "first_update_sign_agreement": agree,
+                    "witness_first_update_sign_agreement": agree_w,
+                    "mesh_vs_witness_first_update_sign_agreement": agree_mw,
+                    "witness_warmup_grad_norm": nw,
+                    "witness_warmup_loss": single_first["witness_loss"],
+                    "single_device_warmup_loss": single_timed["warmup_loss"],
+                    "single_device_ms_mean": single_timed["ms_mean"],
+                    "single_device_peak_bytes": single_timed["peak_bytes"]}
+    log(f"phase 17 timed mesh train step: phi3-mini-3.8b full width, {TRAIN_LAYERS} of "
+        f"{full.n_layers} layers ({n_all} parameters, {n_mm} in products), AdamW lr 3e-4 clip "
+        f"1.0, bf16, remat (the FSDP gathers inside each layer's checkpoint), fused loss, batch "
+        f"{TRAIN_B} x {TRAIN_S}, microbatch {TRAIN_MB}, on {out['mesh']}: warm-up loss "
+        f"{m0_loss:.6f} (phase 15's {single_timed['warmup_loss']:.6f}; less ln V = {ln_v:.6f}: "
+        f"{m0_loss - ln_v:.6f} against {single_timed['warmup_loss'] - ln_v:.6f}), grad norm "
+        f"{m0_norm:.6g} (phase 15's {n1:.6g}, rel {abs(m0_norm - n1) / n1:.4g}, gate "
+        f"{norm_bound:.4g}; one device with the row-parallel products {nw:.6g}, rel "
+        f"{abs(nw - n1) / n1:.4g}, "
+        f"loss {single_first['witness_loss']:.6f}), the first update's moves of one sign as "
+        f"phase 15's in " + ", ".join(f"{k} {v:.4f} (row split: {agree_w[k]:.4f}; the mesh "
+                                      f"as the row split: {agree_mw[k]:.4f})"
+                                      for k, v in agree.items())
+        + f" of the entries (gates: at most {FIRST_SIGN_SLACK} under the row split's; the mesh "
+        f"as the row split in {WITNESS_SIGN_AGREE} or more, its grad norm within "
+        f"{WITNESS_NORM_REL} of the row split's: rel {abs(m0_norm - nw) / nw:.4g}); steps "
+        + ", ".join(
+            f"{t:.2f} ms (loss {x:.4f}, grad norm {g:.4g})" for t, x, g in zip(ms, losses, norms))
+        + f"; mean {ms_mean:.2f} ms, {tokens / ms_mean * 1e3:.0f} tokens/s, mfu {mfu:.4f} "
+        f"(6 N tokens over {PEAK_BF16_FLOPS:.4g} FLOP/s); phase 15's one-device step "
+        f"{single_timed['ms_mean']:.2f} ms "
+        f"({ms_mean / single_timed['ms_mean']:.2f}x); allocator peak {peak} B "
+        f"against the laid-out states' {state_bytes} B on the card (cells "
+        f"{by_cell} B) and one layer's gathered bf16 weights {layer_bf16} B; phase 15's "
+        f"one-device peak {single_timed['peak_bytes']} B")
+    # 16 random layers of the reference's init: neither step's loss is
+    # monotone (phase 15's warm-up loss is below its last) and a random
+    # model's loss sits near ln V; the first step, from the same weights and
+    # batch as phase 15's, holds the mesh's gradient to one device's
+    check(all(math.isfinite(x) for x in losses + [m0_loss])
+          and abs(m0_loss - single_timed["warmup_loss"])
+          <= BF16_LOSS_REL * abs(single_timed["warmup_loss"]),
+          f"phase 17: the timed mesh step's first loss {m0_loss} against phase 15's "
+          f"{single_timed['warmup_loss']}, losses {losses}")
+    check(abs(m0_norm - n1) <= norm_bound * n1,
+          f"phase 17: the timed mesh step's first grad norm {m0_norm} against phase 15's {n1} "
+          f"(row split: {nw})")
+    check(all(agree[k] >= agree_w[k] - FIRST_SIGN_SLACK for k in agree),
+          f"phase 17: the timed mesh step's first update against phase 15's: {agree} "
+          f"(row split: {agree_w})")
+    check(min(agree_mw.values()) >= WITNESS_SIGN_AGREE
+          and abs(m0_norm - nw) <= WITNESS_NORM_REL * nw,
+          f"phase 17: the timed mesh step's first update against one device with its "
+          f"row-parallel products: signs {agree_mw}, grad norm {m0_norm} against {nw}")
+    del st, m, m0, batch, step
+    torch.cuda.empty_cache()
+    out["seconds"]["timed"] = time.perf_counter() - t0
+
+    # (c) olmoe-1b-7b at full width, 2 layers, no pair dropped: the experts' FSDP gather
+    t0 = time.perf_counter()
+    cfg_o = _no_drop(dataclasses.replace(registry.get_arch("olmoe-1b-7b").model, n_layers=2))
+    oc = opt.OptConfig(lr=1e-3)
+    st = lm.init_train_state(cfg_o, torch.Generator(device=dev).manual_seed(0), oc)
+    bo = to_dev(next(synthetic_lm_batches(cfg_o.vocab, 256, 4, seed=2)))
+    l1, l2, p1, p2 = step_pair(cfg_o, st, bo, oc, torch.float32)
+    gap, bad = param_gap(p1, p2, MB_ATOL, MB_RTOL)
+    wg = p2["blocks"][0]["0"]["w_gate"]
+    out["olmoe"] = {"loss_single": l1, "loss_mesh": l2, "loss_rel": abs(l2 - l1) / abs(l1),
+                    "params_max_abs": gap, "params_outside": bad, "w_gate_spec": list(wg.spec),
+                    "capacity_factor": cfg_o.moe.capacity_factor}
+    log(f"phase 17 olmoe-1b-7b full width ({cfg_o.moe.n_experts} experts top-"
+        f"{cfg_o.moe.top_k}), 2 layers, capacity factor {cfg_o.moe.capacity_factor} (no pair "
+        f"drops), B=4, S=256, w_gate laid out {wg.spec} (experts over model, d_model over data, "
+        f"gathered before use): AdamW mesh step loss {l2:.6f} vs one device {l1:.6f} (rel "
+        f"{abs(l2 - l1) / abs(l1):.3g}), params max|d| {gap:.3g}, {bad} outside")
+    check(abs(l2 - l1) / abs(l1) <= MB_LOSS_REL and bad == 0,
+          f"phase 17 olmoe mesh step disagrees with one device: {out['olmoe']}")
+    del st, p1, p2, wg, bo
+    torch.cuda.empty_cache()
+    out["seconds"]["olmoe"] = time.perf_counter() - t0
+
+    # (d) the pod sync on eight cells
+    t0 = time.perf_counter()
+    mesh8 = make_mesh((2, 2, 2), ("pod", "data", "model"), devices=cards * 8)
+    pol8 = shd.train_policy_for(cfg2, mesh8)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    shapes = T.param_shapes(cfg2)
+    grads = T._shape_tree_map(lambda _, shape: torch.randn(shape, generator=gen, device=dev)
+                              * 1e-3, shapes)
+    sg = shd.shard_tree(grads, shd.tree_specs(T.logical_axes_tree(cfg2), pol8), mesh8)
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    synced = lm.compressed_pod_psum(sg, lm.pod_generator(0, dev), mesh8)
+    e1.record()
+    torch.cuda.synchronize()
+    worst = 0.0
+    for g, o in zip(T.tree_leaves(grads), T.tree_leaves(synced)):
+        scale = g.abs().max().item() / 127
+        worst = max(worst, (o.unshard() - g).abs().max().item() / scale)
+    n_grad = sum(t.numel() for t in T.tree_leaves(grads))
+    del grads, sg, synced
+    oc = opt.OptConfig(lr=1e-3)
+    st = lm.init_train_state(cfg2, torch.Generator(device=dev).manual_seed(0), oc)
+    bp = to_dev(next(synthetic_lm_batches(cfg2.vocab, 512, 4, seed=4)))
+    runs, synced = [], {}
+    sync = lm.compressed_pod_psum
+
+    def tap(g, noise, m):             # the pod step's gradients before and after the sync
+        synced["in"], synced["out"] = g, sync(g, noise, m)
+        return synced["out"]
+    for pod in (False, True):
+        lm.compressed_pod_psum = tap
+        try:
+            with _ForwardAt(torch.float32):
+                runs.append(lm.make_train_step(cfg2, oc, mesh=mesh8, pod_compress=pod,
+                                               compute_dtype=torch.float32)(
+                    laid_out(cfg2, st, mesh8), bp))
+        finally:
+            lm.compressed_pod_psum = sync
+    (s0, m0), (s1, m1) = runs
+    pgap = max((a.unshard() - b.unshard()).abs().max().item()
+               for a, b in zip(T.tree_leaves(s0.params), T.tree_leaves(s1.params)))
+    step_worst, moved = 0.0, 0
+    for g, o in zip(T.tree_leaves(synced["in"]), T.tree_leaves(synced["out"])):
+        g, o = g.unshard(), o.unshard()
+        d = (o - g).abs().max().item()
+        step_worst = max(step_worst, d / (g.abs().max().item() / 127))
+        moved += d > 0
+    gn_in = opt.global_norm(synced["in"]).item()
+    gn_out = opt.global_norm(synced["out"]).item()
+    n0, n1 = m0["grad_norm"].item(), m1["grad_norm"].item()
+    out["pod"] = {"mesh": mesh8.describe(), "grad_elements": n_grad,
+                  "worst_err_over_scale": worst, "sync_ms": e0.elapsed_time(e1),
+                  "loss": m1["loss"].item(), "grad_norm": n1, "grad_norm_uncompressed": n0,
+                  "step_sync_in_grad_norm": gn_in, "step_sync_out_grad_norm": gn_out,
+                  "step_sync_worst_err_over_scale": step_worst, "step_sync_leaves_moved": moved,
+                  "params_max_abs_vs_uncompressed": pgap}
+    log(f"phase 17 pod sync on {mesh8.describe()}: compressed_pod_psum of phi3-mini's "
+        f"full-width gradient shapes (2 layers, {n_grad} elements, N(0, 1e-3)) in "
+        f"{e0.elapsed_time(e1):.1f} ms, the largest error {worst:.4f} x its leaf's scale (bound "
+        f"{POD_SCALES}); pod_compress=True step (B=4, S=512, float32): loss "
+        f"{m1['loss'].item():.6f}; its sync's input has the uncompressed step's grad norm "
+        f"({gn_in:.9g} against {n0:.9g}), its output the step's ({gn_out:.9g} against "
+        f"{n1:.9g}), {moved} of {len(T.tree_leaves(synced['in']))} leaves moved by it, the "
+        f"largest by {step_worst:.4f} x the leaf's scale (bound {POD_SCALES}); params max|d| "
+        f"{pgap:.3g} from the uncompressed step's (bound 2 lr = {2 * oc.lr})")
+    check(worst <= POD_SCALES, f"phase 17: the pod sync's error {worst} x scale")
+    check(math.isfinite(m1["loss"].item()) and 0 < pgap <= 2 * oc.lr * (1 + 1e-3)
+          and moved > 0 and step_worst <= POD_SCALES and n1 != n0
+          and abs(gn_in - n0) <= 1e-6 * n0 and abs(gn_out - n1) <= 1e-6 * n1,
+          f"phase 17: the pod_compress step: {out['pod']}")
+    del synced
+    del st, s0, s1, runs, bp
+    torch.cuda.empty_cache()
+    out["seconds"]["pod"] = time.perf_counter() - t0
+
+    # (e) mistral-large-123b at full width, its ArchSpec's serving layout
+    t0 = time.perf_counter()
+    spec_m = registry.get_arch("mistral-large-123b")
+    check(spec_m.serve_mlp_2d and spec_m.serve_seq_shard,
+          "mistral-large-123b's ArchSpec no longer asks for mlp_2d with a sequence-split cache")
+    cfg_m2 = dataclasses.replace(spec_m.model, n_layers=2)
+    pm = T.init_params(cfg_m2, torch.Generator(device=dev).manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg_m2.vocab, (4, 12)).astype(np.int32)).to(dev)
+    rm = _mesh_vs_single(torch, cfg_m2, pm, mesh, torch.float32, tokens, 8, 32, seq=True,
+                         mlp_2d=True, witness=True, order=True)
+    p64 = T.tree_map(lambda _, t: t.double(), pm)
+    del pm
+    torch.cuda.empty_cache()
+    rm64 = _mesh_vs_single(torch, cfg_m2, p64, mesh, torch.float64, tokens, 8, 32, seq=True,
+                           mlp_2d=True)
+    del p64
+    torch.cuda.empty_cache()
+    cfg_m = dataclasses.replace(spec_m.model, n_layers=MISTRAL_LAYERS)
+    pm = T.init_params(cfg_m, torch.Generator(device=dev).manual_seed(0), dtype=torch.bfloat16)
+    pm = T.tree_map(lambda n, t: t.float() if n in T.FLOAT32_LEAVES else t, pm)
+    sp = shd.shard_params(cfg_m, pm, mesh, serve_seq_shard=True, mlp_2d=True)
+    serve_ex = _load_script("examples_torch/serve_lm.py")
+    runs = {"mesh": _engine_run(torch, serve_ex, cfg_m, sp, "mistral-large-123b mlp_2d mesh",
+                                mesh=mesh, serve_seq_shard=True)}
+    del sp
+    runs["single"] = _engine_run(torch, serve_ex, cfg_m, pm, "mistral-large-123b single",
+                                 device=dev)
+    del pm
+    torch.cuda.empty_cache()
+    flips, dmax, skipped = _engine_flips(runs["single"][1], runs["mesh"][1], 4, "admit")
+    scale = max(float(np.abs(r[4]).max()) for r in runs["single"][1])
+    same = sum(a.out == b.out for a, b in zip(runs["single"][0], runs["mesh"][0]))
+    cells = runs["mesh"][3]
+    out["mistral"] = {"f32_2_layers": rm, "f64_2_layers": rm64, "engine": {
+        "mesh": runs["mesh"][2], "single": runs["single"][2], "flips": flips,
+        "max_logit_diff": dmax, "max_logit": scale, "requests_equal": same,
+        "not_compared": skipped, "bytes_by_cell": cells}}
+    log(f"phase 17 mistral-large-123b (d={cfg_m.d_model}, d_ff={cfg_m.d_ff}, {cfg_m.n_heads} "
+        f"heads, kv {cfg_m.n_kv}; mlp_2d: the FFN over (data, model), wq/wk/wv's d_model over "
+        f"(data, model), wo's over model, the cache's sequence over model): float32 at 2 layers, "
+        f"B=4 x 12 tokens, prefill + 8 decode steps, max|d| {rm['max_abs']:.4g} (prefill "
+        f"{rm['prefill_max_abs']:.4g}; largest logit {rm['max_logit']:.4g}), tokens equal "
+        f"{rm['tokens_equal']}; one device in the mesh's order (each data block's rows alone, the "
+        f"FFN in the model cells' blocks summed in order, the decode attention over the cache's "
+        f"two sequence halves combined by flash-decode): {rm['order_max_abs']:.4g} from the "
+        f"plain single device, {rm['mesh_vs_order']:.4g} from the mesh (prefill "
+        f"{rm['mesh_vs_order_prefill']:.4g}), tokens equal the mesh's "
+        f"{rm['order_tokens_equal']} (gates: the mesh within {FWD_TOL} of it, and within "
+        f"{FWD_TOL} or {MESH_F64_WITNESS}x its distance of one device); other witnesses, "
+        f"reported: wo and w_down in 2 blocks {rm['witness_max_abs']:.4g}, every weight one ulp "
+        f"up {rm['ulp_max_abs']:.4g}; float64 at 2 layers max|d| {rm64['max_abs']:.4g} "
+        f"(tolerance {F64_TOL}), tokens equal {rm64['tokens_equal']}; engines at "
+        f"{MISTRAL_LAYERS} of {spec_m.model.n_layers} layers in bf16: decode step "
+        f"{runs['mesh'][2]['decode_ms_mean']:.3f} (mesh) against "
+        f"{runs['single'][2]['decode_ms_mean']:.3f} ms, {runs['mesh'][2]['tokens_per_s']:.1f} "
+        f"against {runs['single'][2]['tokens_per_s']:.1f} tokens/s; {same} of 6 requests token "
+        f"for token; flips (call, slot, request, margin) {flips}; largest logit difference "
+        f"{dmax:.4g} (largest logit {scale:.4g}); weight bytes a cell {cells['weights']} "
+        f"(layout {cells['weights_layout']}), on the card {cells['weights_on_card']}")
+    # d=12288 and 96 heads at the reference's init (wq ~ N(0, 1/96)) amplify
+    # float32 rounding over 2 layers: the mesh is held to one device run in
+    # its own summation order at phase 13's float32 tolerance, to the plain
+    # one device within that or 10x the order's distance from it (as phase
+    # 16 holds its deepest float64 run), and in float64 at 1e-7
+    check(rm["mesh_vs_order"] <= FWD_TOL and rm["order_tokens_equal"],
+          f"phase 17 mistral float32 mlp_2d mesh disagrees with one device in its order: {rm}")
+    check(rm["max_abs"] <= max(FWD_TOL, MESH_F64_WITNESS * rm["order_max_abs"])
+          and rm["tokens_equal"],
+          f"phase 17 mistral float32 mlp_2d mesh disagrees with one device: {rm}")
+    check(rm64["max_abs"] <= F64_TOL and rm64["tokens_equal"],
+          f"phase 17 mistral float64 mlp_2d mesh disagrees with one device: {rm64}")
+    _check_engine_flips("phase 17 mistral-large-123b mlp_2d", flips, dmax, scale)
+    check(cells["weights"] == cells["weights_layout"],
+          "phase 17: mistral's cell bytes differ from the layout's count")
+    out["seconds"]["mistral"] = time.perf_counter() - t0
+
+    out["launches"] = {k_: w.launches for k_, w in wrappers.items()}
+    log(f"phase 17 launches of the four kernels on the mesh training path: {out['launches']}")
+    check(not any(out["launches"].values()),
+          "phase 17: the mesh training path launched a kernel it should not reach")
     out["seconds"]["total"] = time.perf_counter() - t_start
     return out
 
@@ -3608,8 +4290,17 @@ def main() -> int:
     log("phase 16 mesh serving: " + json.dumps({k: msv[k] for k in (
         "primitives", "phi3", "qwen3", "olmoe", "launches")}))
 
+    # -- 17. mesh LM training, the pod sync and the mlp_2d layout ----------------------
+    t17 = time.perf_counter()
+    mtr = mesh_training(torch, wrappers, dev, trn["timed"], trn.pop("first_update"))
+    log(f"phase 17 took {time.perf_counter() - t17:.1f} s ({json.dumps(mtr['seconds'])})")
+    log("phase 17 mesh training: " + json.dumps({k: mtr[k] for k in (
+        "phi3_2_layers", "phi3_2_layers_falls", "timed", "olmoe", "pod", "mistral",
+        "launches")}))
+
     for k in kernels:
         k["launches_mesh_lm"] = msv["launches"][k["name"]]
+        k["launches_mesh_train"] = mtr["launches"][k["name"]]
         k["launches_mesh"] = launches_mesh.get(k["name"], 0)
         if k["name"] in launches:
             k["launches_streaming"] = launches[k["name"]]

@@ -2,14 +2,16 @@
 cells of a ``launch.mesh.Mesh`` (cards, or cells sharing one card).
 
 - collectives.py : one-phase (flat) and two-phase (topology-aware)
-                   reduce-scatter over per-cell tensors — paper §4.2;
+                   reduce-scatter over per-cell tensors — paper §4.2 — and
+                   the LM's FSDP all-gather (``all_gather_over``);
 - reduce.py      : the same two-phase scheme as a host-scheduled staged
                    reduction (ring within fast domains, tree across them) —
                    combines the streaming drivers' per-data-shard partials;
 - su_als.py      : SU-ALS (paper Alg. 3) over the cells, and the per-wave
                    mesh entry points the out-of-core drivers dispatch through;
 - sharding.py    : the LM's logical-axis policies and ``Sharded``, a tensor
-                   laid out as one block a cell;
+                   laid out as one block a cell (parameters and train
+                   states);
 - flash_decode.py: decode attention over a sequence- or kv-sharded cache,
                    per-cell partial softmax combined over the cells;
 - cache_update.py: local writes into a sharded KV cache.

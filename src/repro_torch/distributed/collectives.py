@@ -18,10 +18,18 @@ that share a card exchange views.
 
 Bytes over the slow link:  flat = (P-1)/P * |T|  per device,
 hierarchical = |T| / p_fast per device — a p_fast-times reduction.
+
+Autograd runs through :func:`all_gather` and :func:`all_reduce` as they
+are (``torch.cat``, ``Tensor.to`` and the in-place adds into
+:func:`_sum_to`'s own copy are differentiable): the gradient of an
+all-reduce's input is the sum of its outputs' gradients, and the gradient
+of a gathered block is the sum of the slices of every cell's gradient that
+used it — a reduce-scatter.  :func:`all_gather_over` is the ZeRO-3 gather
+of the LM's FSDP layout built on it.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -100,6 +108,47 @@ def all_gather(parts: Sequence[torch.Tensor], axis: int = 0) -> list[torch.Tenso
         if p.device not in out:
             out[p.device] = torch.cat([q.to(p.device) for q in parts], dim=axis)
     return [out[p.device] for p in parts]
+
+
+def all_gather_over(parts: Sequence[torch.Tensor], mesh, axes, dim: int) -> list[torch.Tensor]:
+    """Every cell's block gathered along ``dim`` over the mesh axes ``axes``
+    (a spec entry: its blocks in that entry's order, the major axis first).
+    ``parts[c]`` is cell c's block (cells in row-major order); each cell
+    gets its group's blocks concatenated, one tensor per distinct device
+    and group of blocks, shared by the cells that have both.  Its backward
+    is the reduce-scatter: each block's gradient is the sum of the
+    matching slices of the gradients of every cell that used the gathered
+    tensor.  With no axes the blocks are returned as they are."""
+    from repro_torch.distributed.sharding import groups_over
+
+    out = list(parts)
+    if axes is None or axes == ():
+        return out
+    memo: dict = {}
+    for g in groups_over(mesh, axes):
+        key = tuple(id(parts[c]) for c in g)
+        if key not in memo:
+            memo[key] = all_gather([parts[c] for c in g], axis=dim)
+        for c, t in zip(g, memo[key]):
+            out[c] = t
+    return out
+
+
+def all_gather_dims(leaf, dims, li: Optional[int] = None) -> list[torch.Tensor]:
+    """Each cell's block of a ``sharding.Sharded`` leaf (layer ``li`` of a
+    layer-stacked leaf: dims count from the stacked shape) with ``dims``
+    gathered over the axes that split them (:func:`all_gather_over`)."""
+    parts = leaf.cells
+    if li is not None:                 # one view a distinct tensor
+        views: dict = {}
+        for t in parts:
+            if id(t) not in views:
+                views[id(t)] = t[li]
+        parts = [views[id(t)] for t in parts]
+    off = 0 if li is None else 1
+    for d in sorted(dims):
+        parts = all_gather_over(parts, leaf.mesh, leaf.spec[d], d - off)
+    return list(parts)
 
 
 def all_reduce(parts: Sequence[torch.Tensor], dtype=None) -> list[torch.Tensor]:

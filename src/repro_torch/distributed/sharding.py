@@ -8,12 +8,13 @@ axes.
 
 Policies:
 - TRAIN   : FSDP + TP.  Weight matrices are 2D-sharded ("d_model" over the
-            data axis, "ff"/"heads" over the model axis).  Ported with the
-            module; no path runs it before ROADMAP item 13f.
+            data axis, "ff"/"heads" over the model axis); the mesh forward
+            gathers each layer's d_model blocks just before use (ZeRO-3),
+            and their gradients come back as a reduce-scatter.
 - SERVE   : TP only on the model axis (weights replicated over data so
             decode needs no per-step parameter gathers); the big MLPs of
             >=100B models are 2D-sharded over (data, model) instead
-            (``mlp_2d``, whose forward is item 13f).
+            (``mlp_2d``, gathered before use the same way).
 - The batch ("dp") axes are ("pod", "data") when the pod axis exists.
 
 Archs whose head counts do not divide the model axis (musicgen 24H,
@@ -40,6 +41,17 @@ import numpy as np
 import torch
 
 Entry = Optional[str | tuple[str, ...]]
+
+
+#: the logical axes of a parameter's d_model dims: the train policy (FSDP)
+#: and ``mlp_2d`` split them over "data", and a mesh forward gathers them
+#: just before use
+D_MODEL_AXES = ("embed_d", "d_model_in", "d_model_out", "attn_din", "attn_dout")
+
+
+def d_model_dims(logical_axes) -> frozenset:
+    """The dims of a leaf whose logical axis is in :data:`D_MODEL_AXES`."""
+    return frozenset(d for d, a in enumerate(logical_axes) if a in D_MODEL_AXES)
 
 
 def dp_axes(mesh) -> tuple[str, ...]:
@@ -125,6 +137,18 @@ def serve_policy_for(cfg, mesh, *, mlp_2d: bool = False,
     tp_kv = cfg.n_kv % tp == 0
     return serve_policy(mesh, tp_heads=tp_heads, tp_kv=tp_kv, mlp_2d=mlp_2d,
                         seq_shard_cache=seq_shard_cache)
+
+
+def train_policy_for(cfg, mesh) -> ShardingPolicy:
+    """The train policy an arch gets on ``mesh`` (the reference's
+    ``launch/builders.py`` ``_train_policy`` without its ``tp1`` option):
+    heads split over "model" when the padded head count divides it, kv
+    heads when the true kv count does, d_model over "data" (FSDP, which
+    every arch's ``ArchSpec`` sets)."""
+    tp = mesh.shape.get("model", 1)
+    tp_heads = cfg.padded_heads % tp == 0 and cfg.padded_heads >= tp
+    tp_kv = cfg.n_kv % tp == 0
+    return train_policy(mesh, tp_heads=tp_heads, tp_kv=tp_kv)
 
 
 def _is_spec(x) -> bool:
@@ -251,6 +275,18 @@ class Sharded:
                 out[self.slices(c)] = t.to(dev)
         return out
 
+    def block_tensors(self) -> dict:
+        """Each block's index tuple -> the distinct tensors that hold it (one
+        per device), blocks and tensors in ascending order of their first
+        cell."""
+        out: dict = {}
+        seen: set = set()
+        for c, t in enumerate(self.cells):
+            if id(t) not in seen:
+                seen.add(id(t))
+                out.setdefault(self.blocks(c), []).append(t)
+        return out
+
     def map(self, fn: Callable[[torch.Tensor], torch.Tensor]) -> "Sharded":
         """``fn`` on every distinct cell tensor (shape-preserving)."""
         memo: dict[int, torch.Tensor] = {}
@@ -349,25 +385,70 @@ def unshard_tree(tree, device=None):
     return get(tree)
 
 
-def shard_params(cfg, params, mesh, *, serve_seq_shard: bool = False,
-                 dtype_of: Optional[Callable] = None):
-    """A parameter tree laid out by :func:`serve_policy_for` on ``mesh``
-    (without ``mlp_2d``, whose forward is ROADMAP item 13f); ``dtype_of``
-    as in :func:`shard_tree`."""
+def shard_params(cfg, params, mesh, *, serve_seq_shard: bool = False, mlp_2d: bool = False,
+                 policy: Optional[ShardingPolicy] = None, dtype_of: Optional[Callable] = None):
+    """A parameter tree laid out on ``mesh`` by ``policy``, by default the
+    serve policy :func:`serve_policy_for` picks (``mlp_2d``: the FFN, and
+    with replicated heads the attention projections, split over "data"
+    too, as ``ArchSpec.serve_mlp_2d`` asks); ``dtype_of`` as in
+    :func:`shard_tree`."""
     from repro_torch.models.transformer import logical_axes_tree
 
-    policy = serve_policy_for(cfg, mesh, seq_shard_cache=serve_seq_shard)
+    if policy is None:
+        policy = serve_policy_for(cfg, mesh, mlp_2d=mlp_2d, seq_shard_cache=serve_seq_shard)
     return shard_tree(params, tree_specs(logical_axes_tree(cfg), policy), mesh, dtype_of)
 
 
+def _map_specs(fn, specs):
+    if _is_spec(specs):
+        return fn(specs)
+    if isinstance(specs, dict):
+        return {k: _map_specs(fn, v) for k, v in specs.items()}
+    return [_map_specs(fn, v) for v in specs]
+
+
+def shard_train_state(cfg, state, mesh, policy: ShardingPolicy):
+    """A train state (``models.lm.TrainState`` of plain tensors) laid out on
+    ``mesh`` by ``policy`` (the layout half of the reference's
+    ``launch/builders.py`` ``train_state_structs``): the parameters and
+    AdamW's ``m`` and ``v`` by the parameters' specs; Adafactor's ``vr``
+    by every entry but the last (a rank-1 leaf's whole spec), its ``vc``
+    by every entry but the second-to-last (a rank-1 leaf's ``[1]``
+    replicated); the step counters on ``mesh.home``.  As with
+    :func:`shard`, a block may share the given tensor's storage, and a
+    train step updates its state in place: clone a state to keep it.  The
+    optimizers' ``init`` on a laid-out parameter tree makes the same
+    layout without a global state."""
+    from repro_torch.models.transformer import logical_axes_tree
+
+    specs = tree_specs(logical_axes_tree(cfg), policy)
+    opt = state.opt
+    fields = tuple(opt._fields)
+    if fields == ("m", "v", "step"):
+        parts = [shard_tree(opt.m, specs, mesh), shard_tree(opt.v, specs, mesh)]
+    elif fields == ("vr", "vc", "step"):
+        vr = _map_specs(lambda s: s[:-1] if len(s) >= 2 else s, specs)
+        vc = _map_specs(lambda s: s[:-2] + s[-1:] if len(s) >= 2 else (None,), specs)
+        parts = [shard_tree(opt.vr, vr, mesh), shard_tree(opt.vc, vc, mesh)]
+    else:
+        raise ValueError(f"unknown optimizer state fields {fields}")
+    return type(state)(shard_tree(state.params, specs, mesh),
+                       type(opt)(*parts, step=opt.step.to(mesh.home)),
+                       state.step.to(mesh.home))
+
+
 def cell_bytes(tree, mesh) -> list[int]:
-    """The bytes of each cell's blocks over a tree of :class:`Sharded`
-    leaves: what the cell would hold on a card of its own."""
+    """The bytes of each cell's blocks over a tree (a parameter tree, a
+    train state) of :class:`Sharded` leaves: what the cell would hold on a
+    card of its own.  A plain tensor (a train state's step counter) counts
+    on the first cell, where it lives."""
     out = [0] * mesh.size
     for leaf in _tree_leaves(tree):
         if isinstance(leaf, Sharded):
             for c, t in enumerate(leaf.cells):
                 out[c] += t.numel() * t.element_size()
+        elif isinstance(leaf, torch.Tensor):
+            out[0] += leaf.numel() * leaf.element_size()
     return out
 
 
@@ -380,6 +461,8 @@ def layout_bytes(tree, mesh) -> list[int]:
             n = math.prod(leaf.local_shape()) * leaf.cells[0].element_size()
             for c in range(mesh.size):
                 out[c] += n
+        elif isinstance(leaf, torch.Tensor):
+            out[0] += leaf.numel() * leaf.element_size()
     return out
 
 

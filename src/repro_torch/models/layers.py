@@ -44,7 +44,7 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     xf = upcast(x)
     var = xf.square().mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
-    return (out * (1.0 + scale.float())).to(x.dtype)
+    return (out * (1.0 + upcast(scale))).to(x.dtype)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:

@@ -1,16 +1,27 @@
-"""The decoder's forward on a mesh of cells, for serving (the mesh branches
-of the reference's ``models/transformer.py`` ``forward``).
+"""The decoder's forward on a mesh of cells (the mesh branches of the
+reference's ``models/transformer.py`` ``forward``): train, prefill and
+decode.
 
 One host program runs each cell's share in ascending cell order; where the
 reference's partitioner inserted collectives, the cells' partials are
 summed explicitly (``distributed.collectives.all_reduce``: a fold in
 ascending "model" order, in float32, cast once).  The layout is the
 parameters' own: each leaf is a ``distributed.sharding.Sharded`` (from
-``sharding.shard_params``, the serve policy), and the forward follows its
-specs:
+``sharding.shard_params`` under the serve policy or its ``mlp_2d``
+layout, or under the train policy), and the forward follows its specs:
 
 - the residual stream is split over the data axes by batch rows when they
   divide the batch (replicated otherwise) and replicated over "model";
+- a parameter's d_model dims (logical axes ``sharding.D_MODEL_AXES``:
+  ``embed_d``, ``d_model_in/out`` and ``attn_din/dout``), which the train
+  policy (FSDP) and ``mlp_2d`` split, are gathered over the axes that
+  split them just before use, one layer at a time
+  (``collectives.all_gather_dims``; ZeRO-3): the backward reduce-scatters
+  their gradients.  Under ``remat`` the gather runs inside the layer's
+  checkpoint, so the backward gathers again and only one layer's gathered
+  weights are held.  A MoE's expert weights are gathered inside
+  ``moe.moe_ffn_layer``, the path of ``moe_ffn(fsdp_gather=True)`` (what
+  the reference's ``_mlp_forward`` asks of ``moe_ffn`` in train mode);
 - q/k/v are column-parallel by head where the policy splits ``wq`` /
   ``wk`` (``tp_heads`` / ``tp_kv``), replicated otherwise; attention is
   local to each cell;
@@ -26,14 +37,18 @@ specs:
   "model" under ``serve_seq_shard``, else its kv heads where the padded kv
   count divides "model" (else the cache is replicated over "model").
 
+Autograd runs through all of it.  A replicated tensor's copies on cells
+that share a device are one tensor, so their gradients add there; copies
+on distinct devices are distinct tensors, whose gradients the train step
+sums (``models.lm.make_train_step``).
+
 The reference's head-sharding constraints on q/k/v and its Megatron-SP
 residual layout (the residual split over "model" by sequence between
 blocks) are layout hints for its partitioner; here q/k/v are as the
 weights make them and the residual stays replicated over "model".
 
-Not on a mesh before ROADMAP item 13f: the train mode, the ``rglru`` and
-``rwkv`` blocks, a sliding window's ring cache, and the ``mlp_2d`` layout
-(any parameter split over a data axis); each raises.
+Not on a mesh before ROADMAP item 13g: the ``rglru`` and ``rwkv`` blocks
+and a sliding window's ring cache; each raises.
 """
 from __future__ import annotations
 
@@ -42,10 +57,11 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import sharding as shd
-from repro_torch.distributed.collectives import all_gather, all_reduce
+from repro_torch.distributed.collectives import all_gather, all_gather_dims, all_reduce
 from repro_torch.distributed.cache_update import cache_write
 from repro_torch.distributed.flash_decode import decode_cells, flash_decode_update
 from repro_torch.distributed.sharding import Sharded
@@ -53,16 +69,28 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as T
 
-MESH_13F = T._MESH_13F
-
+MESH_13G = T._MESH_13G
 
 def check_servable(cfg: ModelConfig) -> None:
-    """Raise for an arch this slice does not serve on a mesh."""
+    """Raise for an arch the mesh forward does not run."""
     kinds = set(T.layer_pattern(cfg))
     if kinds - {"attn"}:
-        raise NotImplementedError(f"{sorted(kinds - {'attn'})} blocks on a mesh are {MESH_13F}")
+        raise NotImplementedError(f"{sorted(kinds - {'attn'})} blocks on a mesh are {MESH_13G}")
     if cfg.sliding_window:
-        raise NotImplementedError(f"the ring (sliding-window) decode on a mesh is {MESH_13F}")
+        raise NotImplementedError(f"the ring (sliding-window) decode on a mesh is {MESH_13G}")
+
+
+def gather_dims(cfg: ModelConfig):
+    """The parameter tree's d_model dims (``sharding.d_model_dims`` of each
+    leaf's logical axes, of its stored, layer-stacked shape), a frozenset a
+    leaf of ``transformer.tree_leaves``."""
+    def dims(tree):
+        if isinstance(tree, dict):
+            return {k: dims(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [dims(v) for v in tree]
+        return shd.d_model_dims(tree)
+    return dims(T.logical_axes_tree(cfg))
 
 
 def _check_mesh(mesh) -> None:
@@ -152,15 +180,17 @@ class _Cells:
         return out
 
 
-def _check_params(params) -> None:
-    for leaf in T.tree_leaves(params):
+def _check_params(params, gdims) -> None:
+    """Every leaf ``Sharded``, split over anything but "model" only on its
+    d_model dims (which the forward gathers)."""
+    for leaf, dims in zip(T.tree_leaves(params), T.tree_leaves(gdims)):
         if not isinstance(leaf, Sharded):
             raise TypeError("a mesh forward takes its parameters laid out on the cells: "
                             "pass them through distributed.sharding.shard_params first")
-        for e in leaf.spec:
-            if set(shd.entry_axes(e)) - {"model"}:
-                raise NotImplementedError(
-                    f"a parameter split over {e!r} (the mlp_2d or FSDP layout) is {MESH_13F}")
+        for d, e in enumerate(leaf.spec):
+            if d not in dims and set(shd.entry_axes(e)) - {"model"}:
+                raise ValueError(f"a parameter split over {e!r} on a dim that is not "
+                                 f"d_model: {leaf.spec}")
 
 
 def _kv_for_heads(k, k0: int, h0: int, hq: int, g: int):
@@ -197,21 +227,24 @@ def argmax(logits: Sharded) -> torch.Tensor:
 
 
 def forward(cfg: ModelConfig, params, batch: dict, *, mode: str, mesh, cache=None,
-            lengths: Optional[torch.Tensor] = None, causal_skip: bool = False,
-            chunk_q: int = 512, chunk_kv: int = 512, serve_seq_shard: bool = False,
-            compute_dtype=torch.bfloat16, cache_len: Optional[int] = None):
-    """``transformer.forward`` on ``mesh`` in modes prefill and decode.
-    Returns (logits, cache): the logits a ``Sharded`` [B, S', V] split by
-    batch rows over the data axes and by vocab over "model"; the cache a
-    tree of ``Sharded`` leaves laid out by :func:`cache_spec` (prefill:
-    stacked, ``cache_len`` positions, default the prompt's; decode: the
-    cache given, written in place)."""
-    if mode == "train":
-        raise NotImplementedError(f"a train forward on a mesh is {MESH_13F}")
-    if mode not in ("prefill", "decode"):
+            lengths: Optional[torch.Tensor] = None, remat: bool = True,
+            causal_skip: bool = False, chunk_q: int = 512, chunk_kv: int = 512,
+            serve_seq_shard: bool = False, compute_dtype=torch.bfloat16,
+            cache_len: Optional[int] = None, return_hidden: bool = False):
+    """``transformer.forward`` on ``mesh``.  Returns (logits, cache): the
+    logits a ``Sharded`` [B, S', V] split by batch rows over the data axes
+    and by vocab over "model" (train: every position; prefill and decode:
+    the last); ``return_hidden``: the final-normed hidden states [B, S', D]
+    instead, split by batch rows.  The cache is a tree of ``Sharded``
+    leaves laid out by :func:`cache_spec` (prefill: stacked, ``cache_len``
+    positions, default the prompt's; decode: the cache given, written in
+    place; train: empty).  ``remat`` applies in train mode with grad
+    enabled: one checkpoint a layer, the layer's FSDP gathers inside."""
+    if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     check_servable(cfg)
-    _check_params(params)
+    gd = gather_dims(cfg)
+    _check_params(params, gd)
     dt = compute_dtype
     if "embeds" in batch:
         emb_in = batch["embeds"]
@@ -232,17 +265,19 @@ def forward(cfg: ModelConfig, params, batch: dict, *, mode: str, mesh, cache=Non
         x = [emb_in[cl.rows(c)].to(cl.dev[c]).to(dt) for c in range(n)]
     else:
         emb = params["embed"]
+        table = all_gather_dims(emb, gd["embed"])
         tok = [tokens[cl.rows(c)].to(cl.dev[c]).long() for c in range(n)]
         if emb.spec[0] is None:
-            x = [emb.cells[c][tok[c]].to(dt) for c in range(n)]
+            x = [table[c][tok[c]].to(dt) for c in range(n)]
         else:
             parts = []
             for c in range(n):
-                e = emb.cells[c]
+                e = table[c]
                 idx = tok[c] - emb.offset(c, 0)
                 live = (idx >= 0) & (idx < e.shape[0])
                 parts.append(torch.where(live[..., None], e[idx.clamp(0, e.shape[0] - 1)], 0))
             x = cl.model_sum(parts, dt)
+        del table
     if mode == "decode":
         lens = [lengths[cl.rows(c)].to(cl.dev[c]) for c in range(n)]
         positions = [ln[:, None] for ln in lens]
@@ -252,22 +287,35 @@ def forward(cfg: ModelConfig, params, batch: dict, *, mode: str, mesh, cache=Non
     if cfg.pos_emb == "sinusoidal":
         x = [x[c] + L.sinusoidal_positions(positions[c], cfg.d_model).to(dt) for c in range(n)]
 
-    attn_kw = dict(causal_skip=causal_skip, chunk_q=chunk_q, chunk_kv=chunk_kv)
+    kw = dict(mode=mode, lens=lens if mode == "decode" else None, cache_len=cache_len, dt=dt,
+              attn_kw=dict(causal_skip=causal_skip, chunk_q=chunk_q, chunk_kv=chunk_kv))
+    remat = remat and mode == "train" and torch.is_grad_enabled()
     new_groups = []
     for gi, (pattern, repeat) in enumerate(T.scan_groups(cfg)):
-        gp = params["blocks"][gi]
+        gp, gdg = params["blocks"][gi], gd["blocks"][gi]
+        if mode == "train":
+            def layer(li, *xs, gp=gp, gdg=gdg, n_pos=len(pattern)):
+                xs = list(xs)
+                for pi in range(n_pos):
+                    xs = _attn_block(cfg, cl, gp[str(pi)], gdg[str(pi)], li, xs, positions,
+                                     None, None, **kw)
+                return tuple(xs)
+
+            for li in range(repeat):
+                x = list(checkpoint(layer, li, *x, use_reentrant=False) if remat
+                         else layer(li, *x))
+            new_groups.append({str(pi): {} for pi in range(len(pattern))})
+            continue
         gc = cache["blocks"][gi] if cache is not None else None
         outs = {str(pi): {"k": [[None] * repeat for _ in range(n)],
                           "v": [[None] * repeat for _ in range(n)]}
                 for pi in range(len(pattern))}
         for li in range(repeat):
             for pi in range(len(pattern)):
-                lp = gp[str(pi)]
                 lc = {nm: Sharded(t.spec[1:], t.shape[1:], mesh, [x_[li] for x_ in t.cells])
                       for nm, t in gc[str(pi)].items()} if mode == "decode" else None
-                x = _attn_block(cfg, cl, lp, li, x, positions, lc, outs[str(pi)], mode=mode,
-                                lens=lens if mode == "decode" else None,
-                                cache_len=cache_len, dt=dt, attn_kw=attn_kw)
+                x = _attn_block(cfg, cl, gp[str(pi)], gdg[str(pi)], li, x, positions, lc,
+                                outs[str(pi)], **kw)
         if mode == "decode":
             new_groups.append(gc)                  # written in place
         else:
@@ -283,17 +331,28 @@ def forward(cfg: ModelConfig, params, batch: dict, *, mode: str, mesh, cache=Non
     if mode == "prefill":
         x = [t[:, -1:] for t in x]
     s_out = x[0].shape[1]
-    head = params["lm_head"] if "lm_head" in params else params["embed"]
-    logits = [x[c] @ head.cells[c].to(dt).T for c in range(n)]
+    if return_hidden:
+        return (cl.sharded((cl.dpb, None, None), (B, s_out, cfg.d_model), x),
+                {"blocks": new_groups})
+    head, table = head_cells(cfg, params, mesh)
+    logits = [x[c] @ table[c].to(dt).T for c in range(n)]
     return (cl.sharded((cl.dpb, None, head.spec[0]), (B, s_out, head.shape[0]), logits),
             {"blocks": new_groups})
 
 
-def _attn_block(cfg, cl: _Cells, lp, li, x, positions, lc, outs, *, mode, lens, cache_len,
+def head_cells(cfg: ModelConfig, params, mesh) -> tuple[Sharded, list]:
+    """The output head (``lm_head``, or the tied embedding) and each cell's
+    block of it with its d_model dim gathered: [V / tp, D]."""
+    head_name = "lm_head" if "lm_head" in params else "embed"
+    return params[head_name], all_gather_dims(params[head_name], gather_dims(cfg)[head_name])
+
+
+def _attn_block(cfg, cl: _Cells, lp, gd, li, x, positions, lc, outs, *, mode, lens, cache_len,
                 dt, attn_kw):
-    """One attention block (attention and FFN) over every cell.  Prefill
-    puts each cell's cache block of this layer into ``outs``; decode
-    writes ``lc`` in place."""
+    """One attention block (attention and FFN) over every cell, its
+    parameters ``lp`` (layer ``li``) gathered on their d_model dims ``gd``
+    first.  Prefill puts each cell's cache block of this layer into
+    ``outs``; decode writes ``lc`` in place; train keeps no cache."""
     n, B, S = cl.n, cl.batch, x[0].shape[1]
     H, KV, dh, D = cfg.padded_heads, cfg.padded_kv, cfg.d_head, cfg.d_model
     g = H // KV
@@ -311,7 +370,10 @@ def _attn_block(cfg, cl: _Cells, lp, li, x, positions, lc, outs, *, mode, lens, 
         raise ValueError("q heads split over 'model' with a sequence-sharded cache: "
                          "shard the parameters with serve_seq_shard=True")
     hl, kvl = H // cl.tp, KV // cl.tp
-    pc = [{nm: t.cells[c][li] for nm, t in lp.items()} for c in range(n)]
+    moe_leaves = moe_mod.MOE_AXES if cfg.moe is not None else {}
+    used = {nm: all_gather_dims(t, gd[nm], li) for nm, t in lp.items() if nm not in moe_leaves}
+    pc = [{nm: v[c] for nm, v in used.items()} for c in range(n)]
+    del used
     q_, k_, v_ = zip(*(T._qkv(cfg, pc[c], x[c], positions[c]) for c in range(n)))
 
     def kv_block(t, c):
@@ -320,7 +382,7 @@ def _attn_block(cfg, cl: _Cells, lp, li, x, positions, lc, outs, *, mode, lens, 
             return t.narrow(2, cl.mi[c] * kvl, kvl)
         return t
 
-    if mode == "prefill":
+    if mode in ("train", "prefill"):
         out = []
         for c in range(n):
             h0 = wq.offset(c, 2)
@@ -329,6 +391,8 @@ def _attn_block(cfg, cl: _Cells, lp, li, x, positions, lc, outs, *, mode, lens, 
             kk = _kv_for_heads(k_[c], k0, h0, hq, g)
             vv = _kv_for_heads(v_[c], k0, h0, hq, g)
             out.append(T._causal_attention(q_[c], kk, vv, window=None, **attn_kw))
+            if mode == "train":
+                continue
             for nm, t in (("k", k_[c]), ("v", v_[c])):
                 t = kv_block(t, c)
                 if seq_axis:
@@ -379,11 +443,8 @@ def _attn_block(cfg, cl: _Cells, lp, li, x, positions, lc, outs, *, mode, lens, 
         if lp["w_gate"].spec[1] != "model" or cl.tp == 1:
             raise ValueError("the expert-parallel MoE needs its experts split over a 'model' "
                              f"axis of size > 1, not {lp['w_gate'].spec} on {cl.mesh.describe()}")
-        names = ("router", "w_gate", "w_up", "w_down")
-        y = moe_mod.moe_ffn_cells({nm: [pc[c][nm] for c in range(n)] for nm in names},
-                                  [t.reshape(-1, D) for t in xn2],
-                                  [lp["w_gate"].offset(c, 1) for c in range(n)],
-                                  cfg.moe, cl.mesh, dt)
+        y = moe_mod.moe_ffn_layer({nm: lp[nm] for nm in moe_leaves},
+                                  [t.reshape(-1, D) for t in xn2], cfg.moe, cl.mesh, dt, li)
         y = [t.reshape(xn2[c].shape) for c, t in enumerate(y)]
         return [x[c] + y[c] for c in range(n)]
     ff_name = "w_in" if cfg.mlp == "gelu" else "w_gate"

@@ -13,8 +13,16 @@ each cell holds ``E / tp`` of them; the tokens are split over the data axes
 dispatches and combines its own tokens into its own experts in float32 —
 capacity from its *local* token count, as the reference's — and one
 float32 sum over the "model" cells, cast once, gives the output: the
-collective of a row-parallel product, no all-to-all.  The FSDP gather of
-the expert weights for training is ROADMAP item 13f.
+collective of a row-parallel product, no all-to-all.
+
+``fsdp_gather`` (training): the expert weights are split 2D, experts over
+"model" and d_model over "data" (the train policy), and each cell gathers
+its d_model blocks over "data" just before use, ZeRO-3 style: the router
+on axis 0, ``w_gate``/``w_up`` on axis 1, ``w_down`` on axis 2, the dims
+whose logical axis :data:`MOE_AXES` names ``d_model_in``
+(:func:`moe_ffn_layer`, which the mesh forward runs too;
+``distributed.collectives.all_gather_dims``, whose backward is the
+reduce-scatter of their gradients).
 """
 from __future__ import annotations
 
@@ -24,6 +32,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.collectives import all_gather_dims, all_reduce
 from repro_torch.models import layers as L
 
 
@@ -118,71 +128,82 @@ def moe_ffn(params, x, cfg: MoEConfig, mesh=None, fsdp_gather=False):
     (often 1).
 
     ``mesh``: the expert-parallel branch.  ``params`` are tensors or
-    ``Sharded`` leaves (router replicated, experts split over "model"),
-    ``x`` a tensor; the output is a tensor on ``x``'s device.  A mesh
-    without a "model" axis of size > 1 runs the single-device arithmetic,
-    as the reference's."""
-    if fsdp_gather:
-        raise NotImplementedError("moe_ffn's fsdp_gather is ROADMAP item 13f "
-                                  "(mesh LM training)")
+    ``Sharded`` leaves (router replicated, experts split over "model";
+    with ``fsdp_gather`` on a mesh with a "data" axis, their d_model dims
+    split over "data" too, gathered before use), ``x`` a tensor; the
+    output is a tensor on ``x``'s device.  A mesh without a "model" axis
+    of size > 1 runs the single-device arithmetic, as the reference's."""
     B, S, D = x.shape
     tp = mesh.shape.get("model", 1) if mesh is not None else 1
     if tp == 1:
         return routed(params, x.reshape(B * S, D), cfg, 0, x.dtype).reshape(B, S, D)
-    from repro_torch.distributed import sharding as shd
-
     if cfg.n_experts % tp:
         raise ValueError(f"{cfg.n_experts} experts do not split over model={tp}")
     dp = shd.dp_axes(mesh)
     if B % math.prod(mesh.shape[a] for a in dp):
         dp = None             # replicated batch (e.g. batch=1 decode)
     dp = dp or None
-    specs = moe_param_specs()
+    specs = moe_param_specs(fsdp_gather and "data" in mesh.axis_names)
     p = {n: shd.as_sharded(params[n], specs[n], mesh) for n in specs}
     xs = shd.as_sharded(x, (dp, None, None), mesh)
-    out = moe_ffn_cells({n: t.cells for n, t in p.items()},
-                        [t.reshape(-1, D) for t in xs.cells],
-                        [p["w_gate"].offset(c, 0) for c in range(mesh.size)], cfg, mesh,
-                        x.dtype)
+    out = moe_ffn_layer(p, [t.reshape(-1, D) for t in xs.cells], cfg, mesh, x.dtype)
     return shd.Sharded(xs.spec, xs.shape, mesh,
                        [t.reshape(xs.cells[c].shape) for c, t in enumerate(out)]).unshard(x.device)
 
 
+def moe_ffn_layer(p, x_cells, cfg: MoEConfig, mesh, dtype, li=None):
+    """The expert-parallel branch on laid-out operands: ``p`` the MoE
+    leaves as ``Sharded`` (layer ``li`` of layer-stacked ones), experts
+    split over "model", each leaf's d_model dims gathered over the axes
+    that split them just before use (nothing to gather when none does);
+    ``x_cells[c]`` cell c's tokens [t, D].  Returns :func:`moe_ffn_cells`'
+    outputs."""
+    lead = 0 if li is None else 1
+    cells = {n: all_gather_dims(p[n], {d + lead for d in shd.d_model_dims(axes)}, li)
+             for n, axes in MOE_AXES.items()}
+    return moe_ffn_cells(cells, x_cells, [p["w_gate"].offset(c, lead) for c in range(mesh.size)],
+                         cfg, mesh, dtype)
+
+
 def moe_ffn_cells(p_cells, x_cells, e_offsets, cfg: MoEConfig, mesh, dtype):
     """The expert-parallel branch on laid-out operands: cell c's parameters
-    ``{name: p_cells[name][c]}``, its tokens ``x_cells[c]`` [t, D] and its
-    first expert ``e_offsets[c]``.  Each cell's float32 share, then one sum
-    over the "model" cells in ascending order, cast once to ``dtype``.
-    Returns the cells' outputs [t, D]."""
-    from repro_torch.distributed.collectives import all_reduce
-    from repro_torch.distributed.sharding import groups_over
-
+    ``{name: p_cells[name][c]}`` (their d_model dims whole), its tokens
+    ``x_cells[c]`` [t, D] and its first expert ``e_offsets[c]``.  Each
+    cell's float32 share, then one sum over the "model" cells in ascending
+    order, cast once to ``dtype``.  Returns the cells' outputs [t, D]."""
     parts = []
     for c, xc in enumerate(x_cells):
         pc = {n: v[c] for n, v in p_cells.items()}
         parts.append(routed(pc, xc, cfg, e_offsets[c], L.upcast(xc).dtype))
     out = [None] * len(parts)
-    for group in groups_over(mesh, "model"):
+    for group in shd.groups_over(mesh, "model"):
         for c, t in zip(group, all_reduce([parts[c] for c in group], dtype)):
             out[c] = t
     return out
 
 
-def moe_param_specs():
-    """The expert-parallel layout of the MoE leaves: the router
-    replicated, the experts split over "model"."""
-    return {"router": (None, None),
-            "w_gate": ("model", None, None),
-            "w_up": ("model", None, None),
-            "w_down": ("model", None, None)}
+#: each MoE leaf's logical axes: experts over "model"; the train policy
+#: splits the ``d_model_in`` dims over "data"
+MOE_AXES = {
+    "router": ("d_model_in", None),
+    "w_gate": ("experts", "d_model_in", None),
+    "w_up": ("experts", "d_model_in", None),
+    "w_down": ("experts", None, "d_model_in"),
+}
+
+
+def moe_param_specs(fsdp: bool = False):
+    """The expert-parallel layout of the MoE leaves, the train policy's
+    specs of :data:`MOE_AXES` (the reference's ``shard_map`` in_specs): the
+    router replicated, the experts split over "model"; ``fsdp``: the
+    d_model dims over "data" too."""
+    pol = shd.train_policy(None, tp_heads=False, tp_kv=False, fsdp=fsdp)
+    return {n: pol.spec(axes) for n, axes in MOE_AXES.items()}
 
 
 def moe_param_shapes(d_model: int, d_ff: int, cfg: MoEConfig):
     """(shape, logical axes) for every MoE parameter."""
     E = cfg.n_experts
-    return {
-        "router": ((d_model, E), ("d_model_in", None)),
-        "w_gate": ((E, d_model, d_ff), ("experts", "d_model_in", None)),
-        "w_up":   ((E, d_model, d_ff), ("experts", "d_model_in", None)),
-        "w_down": ((E, d_ff, d_model), ("experts", None, "d_model_in")),
-    }
+    shapes = {"router": (d_model, E), "w_gate": (E, d_model, d_ff),
+              "w_up": (E, d_model, d_ff), "w_down": (E, d_ff, d_model)}
+    return {n: (shapes[n], axes) for n, axes in MOE_AXES.items()}

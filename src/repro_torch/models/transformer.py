@@ -25,10 +25,11 @@ dropped, as JAX's ``.at[].set`` drops it.
 Block kinds: ``attn`` (with a dense or MoE FFN), ``rglru`` (the Griffin
 recurrent branch and the same FFN) and ``rwkv`` (time and channel mix).
 
-``mesh=``: prefill and decode of the ``attn`` archs on a mesh of cells,
-with the parameters laid out by ``distributed.sharding.shard_params``
-(``models/mesh_forward.py``).  The train mode, the recurrent blocks and
-the ``mlp_2d`` layout on a mesh are ROADMAP item 13f and raise.
+``mesh=``: the three modes of the ``attn`` archs on a mesh of cells, with
+the parameters laid out by ``distributed.sharding`` (the serve policy, its
+``mlp_2d`` layout, or the train policy; ``models/mesh_forward.py``).  The
+recurrent blocks and the ring (sliding-window) decode on a mesh are
+ROADMAP item 13g and raise.
 """
 from __future__ import annotations
 
@@ -46,8 +47,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 
-_MESH_13F = ("ROADMAP item 13f (mesh LM training, the FSDP gather, the pod sync, the "
-             "mlp_2d serving layout and the recurrent blocks on a mesh)")
+_MESH_13G = ("ROADMAP item 13g (the recurrent blocks on a mesh and the ring "
+             "(sliding-window) decode)")
 
 
 # ---------------------------------------------------------------------------
@@ -548,21 +549,20 @@ def forward(
     in train mode with grad enabled: one checkpoint a layer (one period of
     its group's pattern).
 
-    ``mesh``: prefill or decode on the mesh's cells (``mesh_forward``):
-    the parameters and the cache ``Sharded``, the logits returned as a
-    ``Sharded`` split by vocab over "model"; ``serve_seq_shard`` splits
-    the cache's sequence over "model" (no effect without a mesh, as in the
+    ``mesh``: the forward on the mesh's cells (``mesh_forward``): the
+    parameters and the cache ``Sharded``, the logits (or hidden states)
+    returned as a ``Sharded`` split by batch rows over the data axes and
+    the logits by vocab over "model"; ``serve_seq_shard`` splits the
+    cache's sequence over "model" (no effect without a mesh, as in the
     reference)."""
     if mesh is not None:
-        if return_hidden:
-            raise NotImplementedError(f"the hidden states on a mesh (the fused loss) are "
-                                      f"{_MESH_13F}")
         from repro_torch.models import mesh_forward
 
         return mesh_forward.forward(
             cfg, params, batch, mode=mode, mesh=mesh, cache=cache, lengths=lengths,
-            causal_skip=causal_skip, chunk_q=chunk_q, chunk_kv=chunk_kv,
-            serve_seq_shard=serve_seq_shard, compute_dtype=compute_dtype)
+            remat=remat, causal_skip=causal_skip, chunk_q=chunk_q, chunk_kv=chunk_kv,
+            serve_seq_shard=serve_seq_shard, compute_dtype=compute_dtype,
+            return_hidden=return_hidden)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     if "embeds" in batch:

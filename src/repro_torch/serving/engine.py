@@ -26,12 +26,14 @@ per-step decode run in ``serve.prefill`` / ``serve.decode_step`` spans
 card's work), an ``active_slots`` gauge tracks occupancy, and
 ``serve/tokens_decoded`` counts throughput.
 
-``mesh=`` serves on a mesh of cells: the global parameters are cast as
-below and laid out once by the serve policy
-(``distributed.sharding.shard_params``), the bf16 cache is laid out on
-the cells (its slots split over the data axes when they divide, else
-replicated), and the slots' lengths and tokens stay on the mesh's first
-device.  The recurrent archs on a mesh are ROADMAP item 13f and raise.
+``mesh=`` serves on a mesh of cells: global parameters are cast as below
+and laid out once by the serve policy (``distributed.sharding.shard_params``);
+a tree already laid out as ``Sharded`` leaves (e.g. the ``mlp_2d`` layout
+of ``ArchSpec.serve_mlp_2d``) is used as given, each block cast on its
+cell.  The bf16 cache is laid out on the cells (its slots split over the
+data axes when they divide, else replicated), and the slots' lengths and
+tokens stay on the mesh's first device.  The recurrent archs on a mesh are
+ROADMAP item 13g and raise.
 
 The engine computes in bf16, as the reference's does.  Its float32
 weights are cast to bf16 once, except the leaves the forward reads in
@@ -72,7 +74,7 @@ class ServeEngine:
         if mesh is not None:
             if device is not None:
                 raise ValueError("a mesh engine runs on the mesh's devices: pass no device")
-            from repro_torch.distributed.sharding import shard_params
+            from repro_torch.distributed.sharding import Sharded, shard_params
             from repro_torch.models.mesh_forward import check_servable
 
             check_servable(cfg)
@@ -87,7 +89,11 @@ class ServeEngine:
             return (torch.bfloat16 if p.dtype == torch.float32 and n not in T.FLOAT32_LEAVES
                     else None)
 
-        if mesh is not None:   # each cell's block cast on its own device
+        if mesh is not None and isinstance(T.tree_leaves(params)[0], Sharded):
+            self.params = T.tree_map(    # laid out already: each block cast on its cell
+                lambda n, p: p if serving_dtype(n, p) is None else
+                p.map(lambda t: t.to(serving_dtype(n, p))), params)
+        elif mesh is not None:   # each cell's block cast on its own device
             self.params = shard_params(cfg, params, mesh, serve_seq_shard=serve_seq_shard,
                                        dtype_of=serving_dtype)
         else:

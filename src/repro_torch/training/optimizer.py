@@ -16,7 +16,17 @@ is ``jax.tree.leaves``').
 The updates write the parameters and the optimizer state in place under
 ``torch.no_grad()`` (XLA donates the same buffers) and return them: the
 state passed in is the state returned.  Each leaf's arithmetic is the
-reference's expression by expression.
+reference's expression by expression, in float32 (float64 leaves, gradients
+and states stay float64).
+
+A leaf may be a ``distributed.sharding.Sharded`` (a train state laid out
+on a mesh's cells): its gradient and states are ``Sharded`` too, and the
+update runs block by block in place, each block once, its copies on other
+devices overwritten with the result.  What spans blocks is taken over the
+whole leaf: :func:`global_norm` counts every block once (a replicated leaf
+once, not once a cell), Adafactor's row, column and ``vr`` means sum their
+partial sums across the blocks that split the dim, and its update-RMS
+clip is over the whole leaf.
 """
 from __future__ import annotations
 
@@ -25,6 +35,14 @@ import math
 from typing import Any, NamedTuple
 
 import torch
+
+from repro_torch.distributed.sharding import Sharded
+from repro_torch.distributed.sharding import zeros as sharded_zeros
+
+
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or as it is when it is wider (float64)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def lr_schedule(name: str, step, *, base_lr: float = 1.0,
@@ -94,8 +112,20 @@ def _map(fn, tree):
 
 def _step0(params) -> torch.Tensor:
     leaves = _leaves(params)
-    dev = leaves[0].device if leaves else None
+    dev = None
+    if leaves:
+        dev = leaves[0].mesh.home if isinstance(leaves[0], Sharded) else leaves[0].device
     return torch.zeros((), dtype=torch.int32, device=dev)
+
+
+def _zeros(p, shape, spec=None) -> torch.Tensor | Sharded:
+    """A zero state of ``shape`` for leaf ``p``: float32, or float64 beside
+    a float64 leaf; beside a ``Sharded`` leaf, laid out by ``spec`` on its
+    mesh (the step counter on the mesh's first device)."""
+    dtype = torch.promote_types(p.dtype, torch.float32)
+    if isinstance(p, Sharded):
+        return sharded_zeros(shape, spec, p.mesh, dtype)
+    return torch.zeros(shape, dtype=dtype, device=p.device)
 
 
 class AdamState(NamedTuple):
@@ -106,14 +136,60 @@ class AdamState(NamedTuple):
 
 def adam_init(params) -> AdamState:
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return _zeros(p, p.shape, getattr(p, "spec", None))
     return AdamState(m=_map(zeros, params), v=_map(zeros, params), step=_step0(params))
+
+
+def _sq_sum(g) -> torch.Tensor:
+    """The sum of squares of a leaf; of a ``Sharded`` leaf, its blocks'
+    (each once) summed in block order on the mesh's first device."""
+    if not isinstance(g, Sharded):
+        return torch.sum(torch.square(_wide(g)))
+    home = g.mesh.home
+    parts = [torch.sum(torch.square(_wide(ts[0]))).to(home) for ts in g.block_tensors().values()]
+    total = parts[0]
+    for t in parts[1:]:
+        total = total + t
+    return total
 
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares, summed leaf by leaf in ``jax.tree.leaves``
     order as the reference's Python ``sum`` is."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in _leaves(tree)))
+    return torch.sqrt(sum(_sq_sum(g) for g in _leaves(tree)))
+
+
+def _blocks(x) -> dict:
+    """Each block's index tuple -> its tensor: a ``Sharded`` leaf's blocks,
+    the first copy of each, in cell order; a tensor is its one block."""
+    if not isinstance(x, Sharded):
+        return {(0,) * x.dim(): x}
+    out: dict = {}
+    for c in range(x.mesh.size):
+        out.setdefault(x.blocks(c), x.cells[c])
+    return out
+
+
+def _spread(x: Sharded, done: set) -> None:
+    """Every copy of each of ``x``'s blocks overwritten with the block's
+    first copy (once per copy; ``done`` holds the copies already written)."""
+    for ts in x.block_tensors().values():
+        for t in ts[1:]:
+            if id(t) not in done:
+                done.add(id(t))
+                t.copy_(ts[0])
+
+
+class _OnDevice:
+    """Scalars (0-dim tensors) moved to a device once each."""
+
+    def __init__(self, **scalars):
+        self.scalars, self.memo = scalars, {}
+
+    def __call__(self, dev) -> dict:
+        if dev not in self.memo:
+            self.memo[dev] = {k: v.to(dev) for k, v in self.scalars.items()}
+        return self.memo[dev]
 
 
 def _clip_scale(norm: torch.Tensor, max_norm) -> torch.Tensor:
@@ -146,17 +222,29 @@ def adam_update(grads, state: AdamState, params, cfg: OptConfig):
     lr = _cfg_lr(cfg, state.step)
     b1c = 1.0 - cfg.b1 ** step.float()
     b2c = 1.0 - cfg.b2 ** step.float()
+    on = _OnDevice(scale=scale, lr=lr, b1c=b1c, b2c=b2c)
     for p, g, m, v in zip(_leaves(params), _leaves(grads), _leaves(state.m),
                           _leaves(state.v)):
-        g = g.float() * scale
-        m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
-        v.copy_(cfg.b2 * v + (1 - cfg.b2) * torch.square(g))
-        del g
-        delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
-        if cfg.weight_decay:
-            delta = delta + cfg.weight_decay * p.float()
-        p.copy_((p.float() - lr * delta).to(p.dtype))
+        gb, mb, vb = _blocks(g), _blocks(m), _blocks(v)
+        for k, t in _blocks(p).items():
+            _adam_block(t, gb[k], mb[k], vb[k], cfg, **on(t.device))
+        if isinstance(p, Sharded):
+            done: set = set()
+            for x in (p, m, v):
+                _spread(x, done)
     return params, AdamState(m=state.m, v=state.v, step=step), gnorm
+
+
+def _adam_block(p, g, m, v, cfg: OptConfig, *, scale, lr, b1c, b2c) -> None:
+    """One AdamW update of a leaf (or a block of one) in place."""
+    g = _wide(g) * scale
+    m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
+    v.copy_(cfg.b2 * v + (1 - cfg.b2) * torch.square(g))
+    del g
+    delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
+    if cfg.weight_decay:
+        delta = delta + cfg.weight_decay * _wide(p)
+    p.copy_((_wide(p) - lr * delta).to(p.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -170,17 +258,21 @@ class AdafactorState(NamedTuple):
 
 
 def _factored(p) -> bool:
-    return p.ndim >= 2
+    return len(p.shape) >= 2
 
 
 def adafactor_init(params) -> AdafactorState:
     def vr(p):
-        shape = p.shape[:-1] if _factored(p) else p.shape
-        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+        spec = getattr(p, "spec", None)
+        if _factored(p):
+            return _zeros(p, p.shape[:-1], spec and spec[:-1])
+        return _zeros(p, p.shape, spec)
 
     def vc(p):
-        shape = p.shape[:-2] + p.shape[-1:] if _factored(p) else (1,)
-        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+        spec = getattr(p, "spec", None)
+        if _factored(p):
+            return _zeros(p, p.shape[:-2] + p.shape[-1:], spec and spec[:-2] + spec[-1:])
+        return _zeros(p, (1,), spec and (None,))
     return AdafactorState(vr=_map(vr, params), vc=_map(vc, params), step=_step0(params))
 
 
@@ -194,29 +286,85 @@ def adafactor_update(grads, state: AdafactorState, params, cfg: OptConfig):
     step = state.step + 1
     lr = _cfg_lr(cfg, state.step)
     decay = 1.0 - (step.float() + 1.0) ** -0.8
+    on = _OnDevice(scale=scale, lr=lr, decay=decay)
     for p, g, vr, vc in zip(_leaves(params), _leaves(grads), _leaves(state.vr),
                             _leaves(state.vc)):
-        g = g.float() * scale
-        g2 = torch.square(g) + 1e-30
-        if _factored(p):
-            vr.copy_(decay * vr + (1 - decay) * g2.mean(dim=-1))
-            vc.copy_(decay * vc + (1 - decay) * g2.mean(dim=-2))
-            r = vr / torch.clamp(vr.mean(dim=-1, keepdim=True), min=1e-30)
-            precond = torch.rsqrt(torch.clamp(r[..., None] * vc[..., None, :], min=1e-30))
-        else:
-            vr.copy_(decay * vr + (1 - decay) * g2)
-            precond = torch.rsqrt(torch.clamp(vr, min=1e-30))
-        del g2
-        delta = g * precond
-        del g, precond
-        # relative-scale clipping (Adafactor's d=1 update clipping)
-        rms = torch.sqrt(torch.mean(torch.square(delta)) + 1e-30)
-        delta = delta / torch.clamp(rms, min=1.0)
-        new_p = p.float() - lr * delta
-        if cfg.weight_decay:
-            new_p = new_p - lr * cfg.weight_decay * p.float()
-        p.copy_(new_p.to(p.dtype))
+        _adafactor_leaf(p, g, vr, vc, cfg, on)
     return params, AdafactorState(vr=state.vr, vc=state.vc, step=step), gnorm
+
+
+def _sum_over(parts: dict, drop: int, dev_of: dict) -> dict:
+    """Partial sums keyed by block index tuples, added across the blocks
+    that differ only at position ``drop`` (in ascending order of it): the
+    reduced key (``drop`` removed) -> the total on ``dev_of[reduced key]``."""
+    out: dict = {}
+    for key in sorted(parts, key=lambda k: (k[:drop] + k[drop + 1:], k[drop])):
+        rk = key[:drop] + key[drop + 1:]
+        t = parts[key].to(dev_of[rk])
+        out[rk] = t if rk not in out else out[rk] + t
+    return out
+
+
+def _adafactor_leaf(p, g, vr, vc, cfg: OptConfig, on: "_OnDevice") -> None:
+    """One Adafactor update of a leaf, block by block in place (a tensor is
+    one block): a mean over a dim is the sum of its blocks' partial sums
+    over the dim's length, and the update-RMS clip is over the whole
+    leaf."""
+    pb, vrb, vcb = _blocks(p), _blocks(vr), _blocks(vc)
+    gb = _blocks(g)
+    gs = {k: _wide(gb[k]) * on(t.device)["scale"] for k, t in pb.items()}
+    nd = len(p.shape)
+    if _factored(p):
+        n_row, n_col = p.shape[-1], p.shape[-2]
+        g2 = {k: torch.square(t) + 1e-30 for k, t in gs.items()}
+        rows = _sum_over({k: t.sum(dim=-1) for k, t in g2.items()}, nd - 1,
+                         {k: t.device for k, t in vrb.items()})
+        cols = _sum_over({k: t.sum(dim=-2) for k, t in g2.items()}, nd - 2,
+                         {k: t.device for k, t in vcb.items()})
+        del g2
+        for k, t in vrb.items():
+            d = on(t.device)["decay"]
+            t.copy_(d * t + (1 - d) * (rows[k] / n_row))
+        for k, t in vcb.items():
+            d = on(t.device)["decay"]
+            t.copy_(d * t + (1 - d) * (cols[k] / n_col))
+        # vr's mean over its last dim (the leaf's second-to-last)
+        vr_sum = _sum_over({k: t.sum(dim=-1, keepdim=True) for k, t in vrb.items()}, nd - 2,
+                           {k[:-1]: t.device for k, t in vrb.items()})
+        delta = {}
+        for k, t in pb.items():
+            kr, kc = k[:-1], k[:-2] + k[-1:]
+            r = vrb[kr] / torch.clamp(vr_sum[kr[:-1]].to(t.device) / n_col, min=1e-30)
+            precond = torch.rsqrt(torch.clamp(r[..., None] * vcb[kc][..., None, :], min=1e-30))
+            delta[k] = gs[k] * precond
+    else:
+        delta = {}
+        for k, t in vrb.items():
+            d = on(t.device)["decay"]
+            t.copy_(d * t + (1 - d) * (torch.square(gs[k]) + 1e-30))
+            delta[k] = gs[k] * torch.rsqrt(torch.clamp(t, min=1e-30))
+    del gs
+    # relative-scale clipping (Adafactor's d=1 update clipping)
+    home = p.mesh.home if isinstance(p, Sharded) else p.device
+    sq = None
+    for t in delta.values():
+        s = torch.sum(torch.square(t)).to(home)
+        sq = s if sq is None else sq + s
+    rms = torch.sqrt(sq / math.prod(p.shape) + 1e-30)
+    for k, t in pb.items():
+        _adafactor_apply(t, delta[k] / torch.clamp(rms.to(t.device), min=1.0), cfg,
+                         on(t.device)["lr"])
+    if isinstance(p, Sharded):
+        done: set = set()
+        for x in (p, vr, vc):
+            _spread(x, done)
+
+
+def _adafactor_apply(p, delta, cfg: OptConfig, lr) -> None:
+    new_p = _wide(p) - lr * delta
+    if cfg.weight_decay:
+        new_p = new_p - lr * cfg.weight_decay * _wide(p)
+    p.copy_(new_p.to(p.dtype))
 
 
 def make_optimizer(cfg: OptConfig):

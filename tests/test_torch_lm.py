@@ -537,10 +537,12 @@ def test_caches_of_every_block_kind_match_reference(arch):
 
 
 def test_mesh_paths_raise_with_their_roadmap_item():
-    """Mesh serving is ported (tests/test_torch_mesh_lm.py); what stays
-    unported raises naming ROADMAP item 13f: a train forward and a train
-    step on a mesh, and the recurrent archs' mesh steps."""
-    from repro_torch.distributed.sharding import shard_params
+    """Mesh serving and training are ported (tests/test_torch_mesh_lm.py,
+    tests/test_torch_mesh_train.py): a train forward on a mesh gives the
+    single-device logits (float32, 1e-4) and a train step on a mesh runs;
+    what stays unported raises naming ROADMAP item 13g: the recurrent
+    archs' mesh steps."""
+    from repro_torch.distributed.sharding import shard_params, unshard_tree
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.training.optimizer import OptConfig
 
@@ -548,14 +550,23 @@ def test_mesh_paths_raise_with_their_roadmap_item():
     cfg = registry.smoke_config("phi3-mini-3.8b")
     pp = T.init_params(cfg, torch.Generator().manual_seed(0))
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="13f"):
-        T.forward(cfg, shard_params(cfg, pp, mesh), batch, mode="train", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="13f"):
-        lm.make_train_step(cfg, OptConfig(), mesh=mesh)
-    with pytest.raises(NotImplementedError, match="13f"):
+    with torch.no_grad():
+        one, _ = T.forward(cfg, pp, batch, mode="train", compute_dtype=torch.float32)
+        got, _ = T.forward(cfg, shard_params(cfg, pp, mesh), batch, mode="train", mesh=mesh,
+                           compute_dtype=torch.float32)
+    assert got.shape == one.shape == (1, 4, cfg.padded_vocab)
+    np.testing.assert_allclose(got.unshard().numpy(), one.numpy(), atol=1e-4, rtol=1e-4)
+    sp = shard_params(cfg, T.init_params(cfg, torch.Generator().manual_seed(0)), mesh)
+    st = lm.TrainState(sp, lm.opt_mod.adam_init(sp), torch.zeros((), dtype=torch.int32))
+    st, m = lm.make_train_step(cfg, OptConfig(), mesh=mesh)(
+        st, dict(batch, labels=batch["tokens"]))
+    assert np.isfinite(float(m["loss"])) and len(unshard_tree(st.params)) == len(pp)
+    with pytest.raises(NotImplementedError, match="13g"):
         lm.make_decode_step(registry.smoke_config("rwkv6-7b"), mesh=mesh, serve_seq_shard=True)
-    with pytest.raises(NotImplementedError, match="13f"):
+    with pytest.raises(NotImplementedError, match="13g"):
         lm.make_prefill_step(registry.smoke_config("recurrentgemma-2b"), mesh=mesh)
+    with pytest.raises(NotImplementedError, match="13g"):
+        lm.make_train_step(registry.smoke_config("rwkv6-7b"), OptConfig(), mesh=mesh)
     with pytest.raises(ValueError, match="mode"):
         T.forward(cfg, pp, batch, mode="score")
 

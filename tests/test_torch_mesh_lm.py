@@ -17,7 +17,8 @@ cells.
   within 1e-4, float64 within 1e-10.
 - ``ServeEngine(mesh=)`` in bf16 against the single-device engine call by
   call (tests/test_torch_serving.py's ``_compare_calls``), flips pinned.
-- What stays unported raises naming ROADMAP item 13f.
+- What stays unported raises naming ROADMAP item 13g; the paths ROADMAP
+  item 13f ported run (tests/test_torch_mesh_train.py holds them).
 """
 import dataclasses
 import itertools
@@ -586,38 +587,54 @@ def test_mesh_engine_matches_single_device_engine(arch, mesh_name, seq):
 # ---------------------------------------------------------------------------
 
 def test_what_stays_unported_raises_naming_13f():
+    """What ROADMAP item 13f ported runs: a train forward, a train step, the
+    mesh loss, the hidden states on a mesh, the ``mlp_2d`` layout and
+    ``moe_ffn``'s ``fsdp_gather`` (tests/test_torch_mesh_train.py holds
+    them against one device and the reference).  What stays unported, the
+    recurrent blocks on a mesh and the ring decode, raises naming item
+    13g."""
     mesh = _mesh("2x2")
     cfg = registry.smoke_config("phi3-mini-3.8b")
     pp = T.init_params(cfg, torch.Generator().manual_seed(0))
     sp = shd.shard_params(cfg, pp, mesh)
     batch = {"tokens": torch.zeros((2, 4), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="13f"):
-        T.forward(cfg, sp, batch, mode="train", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="13f"):
-        lm.make_train_step(cfg, lm.opt_mod.OptConfig(), mesh=mesh)
-    with pytest.raises(NotImplementedError, match="13f"):
-        lm.lm_loss(cfg, pp, dict(batch, labels=batch["tokens"]), mesh=mesh)
-    with pytest.raises(NotImplementedError, match="13f"):
-        T.forward(cfg, sp, batch, mode="prefill", mesh=mesh, return_hidden=True)
-    # the mlp_2d layout: the FFN split over (data, model)
-    sp2 = shd.shard_tree(pp, shd.tree_specs(T.logical_axes_tree(cfg), shd.serve_policy_for(
-        cfg, mesh, mlp_2d=True)), mesh)
-    with pytest.raises(NotImplementedError, match="13f"):
-        T.forward(cfg, sp2, batch, mode="prefill", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="13f"):
-        moe_mod.moe_ffn({}, torch.zeros(1, 1, 4), moe_mod.MoEConfig(4, 2), fsdp_gather=True)
+    with torch.no_grad():
+        logits, _ = T.forward(cfg, sp, batch, mode="train", mesh=mesh)
+        assert logits.shape == (2, 4, cfg.padded_vocab)
+        hidden, _ = T.forward(cfg, sp, batch, mode="prefill", mesh=mesh, return_hidden=True)
+        assert hidden.shape == (2, 1, cfg.d_model) and hidden.spec == (("data",), None, None)
+        loss = lm.lm_loss(cfg, sp, dict(batch, labels=batch["tokens"]), mesh=mesh)
+        assert loss.shape == () and np.isfinite(float(loss))
+        # the mlp_2d layout: the FFN split over (data, model)
+        sp2 = shd.shard_tree(pp, shd.tree_specs(T.logical_axes_tree(cfg), shd.serve_policy_for(
+            cfg, mesh, mlp_2d=True)), mesh)
+        l2, _ = T.forward(cfg, sp2, batch, mode="prefill", mesh=mesh)
+        l1, _ = T.forward(cfg, sp, batch, mode="prefill", mesh=mesh)
+        assert torch.equal(l1.unshard(), l2.unshard())
+    st = lm.TrainState(sp, lm.opt_mod.adam_init(sp), torch.zeros((), dtype=torch.int32))
+    st, m = lm.make_train_step(cfg, lm.opt_mod.OptConfig(), mesh=mesh)(
+        st, dict(batch, labels=batch["tokens"]))
+    assert np.isfinite(float(m["loss"])) and int(st.step) == 1
+    mp = {k: torch.randn(s, generator=torch.Generator().manual_seed(0)) for k, s in (
+        ("router", (4, 4)), ("w_gate", (4, 4, 8)), ("w_up", (4, 4, 8)), ("w_down", (4, 8, 4)))}
+    x = torch.randn(1, 2, 4, generator=torch.Generator().manual_seed(1))
+    assert torch.equal(moe_mod.moe_ffn(mp, x, moe_mod.MoEConfig(4, 2), fsdp_gather=True),
+                       moe_mod.moe_ffn(mp, x, moe_mod.MoEConfig(4, 2)))
     for arch in ("recurrentgemma-2b", "rwkv6-7b"):
         rcfg = registry.smoke_config(arch)
         rp = T.init_params(rcfg, torch.Generator().manual_seed(0))
         for call in (lambda: engine.ServeEngine(rcfg, rp, mesh=mesh),
                      lambda: lm.make_decode_step(rcfg, mesh=mesh),
                      lambda: lm.make_prefill_step(rcfg, mesh=mesh),
+                     lambda: lm.make_train_step(rcfg, lm.opt_mod.OptConfig(), mesh=mesh),
                      lambda: T.init_cache(rcfg, 2, 8, mesh=mesh)):
-            with pytest.raises(NotImplementedError, match="13f"):
+            with pytest.raises(NotImplementedError, match="13g"):
                 call()
     # no silent fallback: unsharded parameters on a mesh are refused
     with pytest.raises(TypeError, match="shard_params"):
         T.forward(cfg, pp, batch, mode="prefill", mesh=mesh)
+    with pytest.raises(TypeError, match="shard_params"):
+        lm.lm_loss(cfg, pp, dict(batch, labels=batch["tokens"]), mesh=mesh)
     with pytest.raises(ValueError, match="split"):
         lm.make_prefill_step(cfg, mesh=mesh, serve_seq_shard=True, max_seq=13)
     with pytest.raises(ValueError, match="stacked"):

@@ -146,18 +146,24 @@ def test_moe_ffn_bf16_routes_as_the_reference():
 
 
 def test_moe_ffn_refuses_a_mesh():
-    """The expert-parallel branch is ported (tests/test_torch_mesh_lm.py);
-    the FSDP gather of training stays ROADMAP item 13f, and a mesh whose
-    "model" axis does not split the experts is refused."""
+    """The expert-parallel branch (tests/test_torch_mesh_lm.py) and the FSDP
+    gather of training (tests/test_torch_mesh_train.py) are ported: with
+    ``fsdp_gather`` the experts' d_model blocks over "data" are gathered
+    before use, bit-equal to the branch without it (the gather copies); a
+    mesh whose "model" axis does not split the experts is refused, with
+    or without it."""
     from repro_torch.launch.mesh import make_mesh
 
     params = {k: _t(v) for k, v in _moe_params(0, 8, 8, 4).items()}
+    x = _t(np.random.default_rng(1).standard_normal((2, 4, 8)).astype(np.float32))
+    mesh = make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4)
+    cfg = M.MoEConfig(4, 2)
+    assert torch.equal(M.moe_ffn(params, x, cfg, mesh=mesh, fsdp_gather=True),
+                       M.moe_ffn(params, x, cfg, mesh=mesh))
     mesh = make_mesh((1, 8), ("data", "model"), devices=["cpu"] * 8)
-    with pytest.raises(NotImplementedError, match="13f"):
-        M.moe_ffn(params, torch.zeros((1, 2, 8)), M.MoEConfig(4, 2), mesh=mesh,
-                  fsdp_gather=True)
-    with pytest.raises(ValueError, match="split"):
-        M.moe_ffn(params, torch.zeros((1, 2, 8)), M.MoEConfig(4, 2), mesh=mesh)
+    for fsdp in (False, True):
+        with pytest.raises(ValueError, match="split"):
+            M.moe_ffn(params, torch.zeros((1, 2, 8)), cfg, mesh=mesh, fsdp_gather=fsdp)
 
 
 # ---------------------------------------------------------------------------

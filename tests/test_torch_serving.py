@@ -306,7 +306,7 @@ def test_engine_reports_spans_and_metrics():
 
 
 def test_engine_refuses_mesh_and_needs_a_device():
-    """The recurrent archs on a mesh are ROADMAP item 13f; a mesh engine
+    """The recurrent archs on a mesh are ROADMAP item 13g; a mesh engine
     takes its devices from the mesh; without either it needs the card."""
     from repro_torch.launch.mesh import make_mesh
 
@@ -315,7 +315,7 @@ def test_engine_refuses_mesh_and_needs_a_device():
     params = T.init_params(cfg, torch.Generator().manual_seed(0))
     for arch in ("recurrentgemma-2b", "rwkv6-7b"):
         rcfg = registry.smoke_config(arch)
-        with pytest.raises(NotImplementedError, match="13f"):
+        with pytest.raises(NotImplementedError, match="13g"):
             engine.ServeEngine(rcfg, T.init_params(rcfg, torch.Generator().manual_seed(0)),
                                mesh=mesh)
     with pytest.raises(ValueError, match="device"):

@@ -192,11 +192,26 @@ def test_train_step_remat_on_and_off_equal():
 
 
 def test_mesh_and_pod_sync_raise_with_their_roadmap_item():
+    """The mesh train step and the pod sync are ported
+    (tests/test_torch_mesh_train.py); as in the reference, ``pod_compress``
+    does nothing without a mesh that has a "pod" axis: the step is
+    bit-equal to the one without it.  A recurrent arch's mesh step stays
+    ROADMAP item 13g."""
+    from repro_torch.launch.mesh import make_mesh
+
     cfg = registry.smoke_config("phi3-mini-3.8b")
-    with pytest.raises(NotImplementedError, match="13f"):
-        lm.make_train_step(cfg, opt.OptConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="13f"):
-        lm.make_train_step(cfg, opt.OptConfig(), pod_compress=True)
+    oc = opt.OptConfig(lr=1e-3)
+    a = lm.init_train_state(cfg, torch.Generator().manual_seed(0), oc)
+    b = lm.TrainState(_clone_tree(a.params), opt.adam_init(a.params), a.step)
+    batch = {k: _t(v) for k, v in _batch(cfg, 2, 16, 5).items()}
+    sa, ma = lm.make_train_step(cfg, oc, remat=False)(a, batch)
+    sb, mb = lm.make_train_step(cfg, oc, remat=False, pod_compress=True)(b, batch)
+    assert torch.equal(ma["grad_norm"], mb["grad_norm"])
+    assert all(torch.equal(x, y) for x, y in zip(T.tree_leaves(sa.params), T.tree_leaves(sb.params)))
+    mesh = make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4)
+    with pytest.raises(NotImplementedError, match="13g"):
+        lm.make_train_step(registry.smoke_config("recurrentgemma-2b"), opt.OptConfig(),
+                           mesh=mesh, pod_compress=True)
 
 
 def test_train_loss_goes_down_tiny_lm():

@@ -344,8 +344,22 @@ def test_lm_loss_mask_clamp_and_chunk_checks():
         assert torch.equal(nomask, ones)
         with pytest.raises(ValueError, match="divide"):
             lm.lm_loss(cfg, pp, b, fused_loss=True, loss_chunk=5)
-    with pytest.raises(NotImplementedError, match="13f"):
-        lm.lm_loss(cfg, pp, b, mesh=object())
+    # on a mesh (tests/test_torch_mesh_train.py): the same clamp, mask and
+    # chunk checks, and parameters not laid out on the cells refused
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4)
+    sp = shd.shard_params(cfg, pp, mesh, policy=shd.train_policy_for(cfg, mesh))
+    with torch.no_grad():
+        assert float(lm.lm_loss(cfg, sp, dict(b, mask=torch.zeros(2, 12)), mesh=mesh)) == 0.0
+        nomask = lm.lm_loss(cfg, sp, {k: v for k, v in b.items() if k != "mask"}, mesh=mesh)
+        assert torch.equal(nomask, lm.lm_loss(cfg, sp, dict(b, mask=torch.ones(2, 12)),
+                                              mesh=mesh))
+        with pytest.raises(ValueError, match="divide"):
+            lm.lm_loss(cfg, sp, b, fused_loss=True, loss_chunk=5, mesh=mesh)
+    with pytest.raises(TypeError, match="shard_params"):
+        lm.lm_loss(cfg, pp, b, mesh=mesh)
 
 
 def test_fused_loss_matches_unfused_in_bf16():
