@@ -212,13 +212,26 @@ Phases, in order; any failure stops the run with a non-zero exit:
    gates, each cell's bytes, ms per decode step).  The path launches none of
    the four kernels, as the reference's ``jax.grad`` and partitioner reach
    none.
+18. the recurrent blocks and the ring decode on a mesh (``mesh_recurrent``)
+   on the same data=2 x model=2 mesh: recurrentgemma-2b (RG-LRU and window
+   2048 MQA attention) and rwkv6-7b at full width, random weights from
+   seed 0: float32 at 3 and 2 layers against one device (1e-4;
+   recurrentgemma's 2560-token prompt rolls the ring and 16 decode steps
+   write past the roll), the bf16 engines at full depth (phase 16's gates, ms per decode
+   step, tokens/s, each cell's bytes of weights and of every cache kind), a
+   timed bf16 mesh prefill of 512 tokens, one AdamW mesh train step at the
+   cut depth (float32 at the microbatch bounds, float64 params within
+   1e-7; rwkv6 at 128 tokens: its chunked WKV scan) and float64 at the
+   deepest depth that fits (1e-7).  The path launches none of the four
+   kernels.
 
 The second-to-last line of output is a JSON ``kernels`` record (with each
 kernel's ``launches_mesh``, its launches in phase 11's runs,
 ``launches_entry_points``, its launches in phase 12's runs,
 ``launches_lm``, its launches in phase 13's full-width factorization,
 ``launches_mesh_lm``, its launches in phase 16 (none),
-``launches_mesh_train``, its launches in phase 17 (none), and
+``launches_mesh_train``, its launches in phase 17 (none),
+``launches_mesh_recurrent``, its launches in phase 18 (none), and
 for the ALS kernels ``max_abs_err_mesh``, their error against the plain
 versions at 11b's shapes, ``max_abs_err_lm`` at phase 13's, and
 ``max_abs_err_entry_points`` for the three training kernels at phase 12's
@@ -1874,7 +1887,8 @@ def _mesh_vs_single(torch, cfg, params, mesh, dtype, tokens, steps, max_seq, seq
     cache's cell shape and the calls' seconds (single, mesh).  ``witness``:
     also the single device under :class:`_RowSplit` ("model" blocks) and
     under :class:`_UlpShift`: their largest differences from the plain
-    single device, and the row split's from the mesh.  ``order``: also the
+    single device, and the row split's from the mesh (``"ulp"``: only
+    :class:`_UlpShift`'s).  ``order``: also the
     single device under :class:`_MeshOrder` on each block of the batch
     rows that the data axes give the mesh's cells: its largest differences
     from the plain single device and from the mesh.  ``mlp_2d``: the
@@ -1885,6 +1899,7 @@ def _mesh_vs_single(torch, cfg, params, mesh, dtype, tokens, steps, max_seq, seq
 
     from repro_torch.distributed import sharding as shd
     from repro_torch.models import lm
+    from repro_torch.models.transformer import tree_leaves as T_leaves
 
     kw = dict(compute_dtype=dtype)
     sp = shd.shard_params(cfg, params, mesh, serve_seq_shard=seq, mlp_2d=mlp_2d)
@@ -1907,7 +1922,9 @@ def _mesh_vs_single(torch, cfg, params, mesh, dtype, tokens, steps, max_seq, seq
     runs = [("single", params, {}, contextlib.nullcontext()),
             ("mesh", sp, dict(mesh=mesh, serve_seq_shard=seq), contextlib.nullcontext())]
     if witness:
-        runs += [("witness", params, {}, _RowSplit(tp)), ("ulp", params, {}, _UlpShift(params))]
+        if witness != "ulp":
+            runs.append(("witness", params, {}, _RowSplit(tp)))
+        runs.append(("ulp", params, {}, _UlpShift(params)))
     for where, p, mk, ctx in runs:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1929,16 +1946,30 @@ def _mesh_vs_single(torch, cfg, params, mesh, dtype, tokens, steps, max_seq, seq
     def dist(a, b, calls=slice(None)):
         return max(float(abs(x - y).max()) for x, y in zip(res[a][0][calls], res[b][0][calls]))
 
+    def leaf(cache, name):
+        """The first leaf called ``name`` of a cache, or None."""
+        return next((blk[name] for grp in cache["blocks"] for blk in grp.values()
+                     if name in blk), None)
+
     scale = max(float(abs(a).max()) for a in res["single"][0])
-    k0 = res["mesh"][2]["blocks"][0]["0"]["k"]
+    k0 = leaf(res["mesh"][2], "k")
+    k0 = T_leaves(res["mesh"][2])[0] if k0 is None else k0
     out = {"max_abs": dist("single", "mesh"), "prefill_max_abs": dist("single", "mesh", slice(1)),
            "tokens_equal": bool(torch.equal(res["single"][1], res["mesh"][1])),
            "max_logit": scale, "cache_cell_shape": list(k0.cells[0].shape),
            "seconds": [res["single"][3], res["mesh"][3]],
            "tokens": res["single"][1].tolist()}
+    pos = leaf(res["mesh"][2], "pos")
+    if pos is not None:     # a window's ring: the positions each slot holds after the run
+        pm, ps = pos.unshard(), leaf(res["single"][2], "pos")
+        row = pm[0, 0]
+        out["ring"] = {"slots": int(row.numel()), "first": int(row.min()), "last": int(row.max()),
+                       "equal_to_single": bool(torch.equal(pm.cpu(), ps.cpu())),
+                       "slot_of_last": int(torch.argmax(row))}
     if witness:
+        out["ulp_max_abs"] = dist("single", "ulp")
+    if witness and witness != "ulp":
         out.update(witness_max_abs=dist("single", "witness"),
-                   ulp_max_abs=dist("single", "ulp"),
                    mesh_vs_witness=dist("mesh", "witness"),
                    witness_tokens_equal=bool(torch.equal(res["single"][1], res["witness"][1])))
     if order:
@@ -2687,6 +2718,291 @@ def mesh_training(torch, wrappers: dict, dev, single_timed: dict, single_first: 
     log(f"phase 17 launches of the four kernels on the mesh training path: {out['launches']}")
     check(not any(out["launches"].values()),
           "phase 17: the mesh training path launched a kernel it should not reach")
+    out["seconds"]["total"] = time.perf_counter() - t_start
+    return out
+
+
+#: phase 18: recurrentgemma-2b's float32 check runs one period (R, R, A)
+#: on a prompt longer than its 2048 window, so the prefill's ring is rolled
+#: (slot p % 2048 holds position p; the chunked prefill attention takes a
+#: multiple of its 512-position chunks), and decode steps that write past
+#: the roll; its float64 check the deepest of these depths that fits on the
+#: card beside what earlier phases hold (a fresh float64 draw from seed 0)
+RG_F32_LAYERS, RING_PROMPT, RING_STEPS = 3, 2560, 16
+RG_F64_DEPTHS = (26, 13, 6)
+#: rwkv6-7b: float32 at 2 layers, float64 at the deepest of these that fits
+#: (its float64 weights take 1.75 GB a layer, and 4.3 GB of embedding and
+#: head; the mesh holds a laid-out copy beside them)
+RWKV_F32_LAYERS = 2
+RWKV_F64_DEPTHS = (16, 8, 4)
+#: the train steps: recurrentgemma at one period, rwkv6 at 2 layers, B=2 x
+#: MESH18_TRAIN_S tokens (a multiple of 64: rwkv6's chunked WKV scan)
+MESH18_TRAIN_S = 128
+#: phase 18's bf16 engines: the witness factor of :func:`_check_bf16_engines`
+MESH_BF16_WITNESS = 2
+#: the leaves ``init_params`` sets to zero and phase 18 draws from its seed
+#: (N(0, 0.2); ``ln_w`` 1 + N(0, 0.2)): at zero RWKV6's group-norm scale
+#: would make its whole time mix 0
+DRAWN_LEAVES = ("ln1", "ln2", "final_norm", "ln_w", "ln_b", "u")
+
+
+def _check_bf16_engines(label, flips, dmax, scale, dmax_ulp):
+    """Phase 18's gate on the bf16 engines, mesh against one device: phase
+    16's (logits within ``MESH_BF16_REL`` x the largest, flips under
+    ``MESH_NEAR_TIE``), each bound raised to ``MESH_BF16_WITNESS`` x the
+    distance at which one device's engine lands from itself with every
+    bf16 weight one ulp up (``dmax_ulp``): where a deep recurrent network
+    turns a rounding into that much, the mesh's rounding (another one) may
+    do about as much."""
+    wit = MESH_BF16_WITNESS * dmax_ulp
+    check(dmax <= max(MESH_BF16_REL * scale, wit),
+          f"{label}: the mesh engine's logits are {dmax} from one device's (bound "
+          f"{MESH_BF16_REL}x the largest logit {scale}, or {MESH_BF16_WITNESS}x one ulp's "
+          f"{dmax_ulp})")
+    check(all(f[3] < max(MESH_NEAR_TIE, wit) for f in flips),
+          f"{label}: a flip at a margin of {max(MESH_NEAR_TIE, wit)} or more: {flips}")
+
+
+def mesh_recurrent(torch, wrappers: dict, dev, single_prefill_ms: dict) -> dict:
+    """Phase 18: the recurrent blocks and the ring decode on a data=2 x
+    model=2 mesh whose four cells share the card (results, launches and
+    the host's cost of four cells; not scaling).  For recurrentgemma-2b
+    (RG-LRU and window-2048 MQA attention, 10 heads padded to 16) and
+    rwkv6-7b (64 heads of 64) at full width, random weights from seed 0
+    (``DRAWN_LEAVES`` drawn too):
+
+    (a) float32 at a cut depth against one device at ``FWD_TOL``:
+    recurrentgemma's ``RING_PROMPT``-token prompt rolls its ring and
+    ``RING_STEPS`` decode steps write past the roll, the ring's positions
+    equal to one device's (deeper than 2 layers the gate is ``FWD_TOL`` or
+    ``MESH_F64_WITNESS`` x the distance of one device with every weight one
+    ulp up, as phase 16's float64 gate at 16 layers); (b) the bf16 engines at full depth on the
+    example's traffic (4 slots) under :func:`_check_bf16_engines`, ms a
+    decode step, tokens/s, each cell's bytes of weights and cache against
+    the layout's count; (c) a
+    timed bf16 mesh prefill of 512 tokens beside phase 14's one-device
+    ``single_prefill_ms``; (d) one AdamW mesh train step at a cut depth
+    against one device (float32 at the microbatch bounds, float64 params
+    within ``F64_TOL``); (e) float64 at the deepest depth that fits within
+    ``F64_TOL`` or that witness's bound.  The reference computes these blocks with ``einsum``s and
+    scans under its partitioner, outside any Pallas kernel: the phase
+    launches none of the four kernels.
+    """
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.data import synthetic_lm_batches
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as opt
+
+    t_start = time.perf_counter()
+    for w in wrappers.values():
+        w.launches = 0
+    serve_ex = _load_script("examples_torch/serve_lm.py")
+    mesh = make_mesh((2, 2), ("data", "model"), devices=[f"cuda:{dev.index or 0}"] * 4)
+    out = {"mesh": mesh.describe(), "seconds": {}}
+
+    def draw(cfg, depth, dtype):
+        """``cfg`` at ``depth`` layers, its weights from seed 0 in ``dtype``."""
+        c = dataclasses.replace(cfg, n_layers=depth)
+        p = T.init_params(c, torch.Generator(device=dev).manual_seed(0), dtype=dtype)
+        gen = torch.Generator(device=dev).manual_seed(1)
+
+        def fill(name, t):
+            if name in DRAWN_LEAVES:
+                z = torch.randn(t.shape, generator=gen, device=dev) * 0.2
+                t.copy_(z + 1 if name == "ln_w" else z)
+            return t
+        return c, T.tree_map(fill, p)
+
+    def serving_dtype(n, p):
+        return torch.bfloat16 if n not in T.FLOAT32_LEAVES else None
+
+    def tokens(vocab, B, S, seed):
+        rng = np.random.default_rng(seed)
+        return torch.from_numpy(rng.integers(0, vocab, (B, S)).astype(np.int32)).to(dev)
+
+    for arch in ("recurrentgemma-2b", "rwkv6-7b"):
+        t0 = time.perf_counter()
+        rg = arch == "recurrentgemma-2b"
+        full = registry.get_arch(arch).model
+        res = out[arch] = {}
+        cfg, params = draw(full, full.n_layers, torch.float32)
+        torch.cuda.synchronize()
+        label = f"phase 18 {arch}"
+        heads = (f"{full.n_heads} heads padded to {full.padded_heads}, kv {full.n_kv}, window "
+                 f"{full.sliding_window}, d_rnn {full.d_rnn}" if rg else
+                 f"{full.d_model // 64} heads of 64 ({full.d_model // 128} a cell)")
+        log(f"{label} (d={full.d_model}, {heads}, d_ff {full.d_ff}, vocab {full.vocab}, "
+            f"{full.n_layers} layers, groups {T.scan_groups(full)}) on {out['mesh']}")
+
+        # (a) float32 at a cut depth
+        depth = RG_F32_LAYERS if rg else RWKV_F32_LAYERS
+        c32, p32 = _first_layers(cfg, params, depth)
+        B, S, steps = (2, RING_PROMPT, RING_STEPS) if rg else (4, 64, 16)
+        r32 = _mesh_vs_single(torch, c32, p32, mesh, torch.float32,
+                              tokens(cfg.vocab, B, S, 0), steps, S + steps, witness="ulp")
+        res["f32"] = dict(r32, layers=depth, prompt=S, steps=steps, batch=B)
+        ring = ""
+        if rg:
+            rr = r32["ring"]
+            ring = (f"; the ring: {rr['slots']} slots hold positions {rr['first']}-{rr['last']} "
+                    f"(the newest in slot {rr['slot_of_last']}), equal to one device's "
+                    f"{rr['equal_to_single']}")
+            check(rr["slots"] == full.sliding_window and rr["last"] == S + steps - 1
+                  and rr["first"] == S + steps - full.sliding_window
+                  and rr["slot_of_last"] == (S + steps - 1) % full.sliding_window
+                  and rr["equal_to_single"],
+                  f"{label}: the ring was not rolled and wrapped as on one device: {rr}")
+        log(f"  float32 at {depth} layers, B={B} x {S} tokens, prefill + {steps} decode steps, "
+            f"mesh against one device: max|d| {r32['max_abs']:.3g} (prefill "
+            f"{r32['prefill_max_abs']:.3g}; one device with every weight one ulp up "
+            f"{r32['ulp_max_abs']:.3g} from it; tolerance {FWD_TOL} or {MESH_F64_WITNESS}x "
+            f"that), tokens equal {r32['tokens_equal']}, largest logit {r32['max_logit']:.4g}, "
+            f"a cell's first cache leaf {r32['cache_cell_shape']}{ring}; seconds (single, "
+            f"mesh) {r32['seconds']}")
+        check(r32["max_abs"] <= max(FWD_TOL, MESH_F64_WITNESS * r32["ulp_max_abs"])
+              and r32["tokens_equal"], f"{label} float32 mesh disagrees with one device: {r32}")
+        del p32
+
+        # (b) the bf16 engines at full depth, and the witness: one device
+        # with every bf16 weight one ulp up
+        runs = {}
+        for where, kw in (("mesh", dict(mesh=mesh)), ("single", dict(device=dev))):
+            runs[where] = _engine_run(torch, serve_ex, cfg, params, f"{arch} {where}", **kw)
+        up = T.tree_map(lambda n, t: t if n in T.FLOAT32_LEAVES else
+                        t.to(torch.bfloat16).nextafter(t.new_full((), math.inf, dtype=torch.bfloat16)),
+                        params)
+        runs["ulp"] = _engine_run(torch, serve_ex, cfg, up, f"{arch} single, weights one ulp up",
+                                  device=dev)
+        del up
+        torch.cuda.empty_cache()
+        flips, dmax, skipped = _engine_flips(runs["single"][1], runs["mesh"][1], 4, "never")
+        flips_w, dmax_w, _ = _engine_flips(runs["single"][1], runs["ulp"][1], 4, "never")
+        scale = max(float(np.abs(r[4]).max()) for r in runs["single"][1])
+        same = sum(a.out == b.out for a, b in zip(runs["single"][0], runs["mesh"][0]))
+        by_cell = runs["mesh"][3]
+        res["engine"] = {"mesh": runs["mesh"][2], "single": runs["single"][2], "flips": flips,
+                         "max_logit_diff": dmax, "max_logit": scale, "requests_equal": same,
+                         "not_compared": skipped, "bytes_by_cell": by_cell,
+                         "ulp_flips": flips_w, "ulp_max_logit_diff": dmax_w}
+        del runs
+        torch.cuda.empty_cache()
+        m_, s_ = res["engine"]["mesh"], res["engine"]["single"]
+        log(f"  engines (bf16, {full.n_layers} layers), mesh against one device: decode step "
+            f"{m_['decode_ms_mean']:.3f} against {s_['decode_ms_mean']:.3f} ms "
+            f"({m_['decode_ms_mean'] / s_['decode_ms_mean']:.2f}x), {m_['tokens_per_s']:.1f} "
+            f"against {s_['tokens_per_s']:.1f} tokens/s; {same} of 6 requests token for token; "
+            f"flips (call, slot, request, the single device's top-2 margin) {flips}; largest "
+            f"logit difference on the slots compared {dmax:.4g} (largest logit {scale:.4g}); "
+            f"one device with its bf16 weights one ulp up: flips {flips_w}, largest logit "
+            f"difference {dmax_w:.4g}")
+        _check_bf16_engines(label, flips, dmax, scale, dmax_w)
+        log(f"  bytes a cell (data, model) = (0,0) (0,1) (1,0) (1,1): weights "
+            f"{by_cell['weights']} (layout {by_cell['weights_layout']}), cache "
+            f"{by_cell['cache']} (layout {by_cell['cache_layout']}); on the card: weights "
+            f"{by_cell['weights_on_card']}, cache {by_cell['cache_on_card']}")
+        check(by_cell["weights"] == by_cell["weights_layout"]
+              and by_cell["cache"] == by_cell["cache_layout"],
+              f"{label}: a cell's bytes differ from its layout's count")
+
+        # (c) a timed bf16 mesh prefill of 512 tokens
+        sp16 = shd.shard_params(cfg, params, mesh, dtype_of=serving_dtype)
+        toks = tokens(cfg.vocab, 1, 512, 1)
+        prefill = lm.make_prefill_step(cfg, mesh=mesh)
+        ms = cuda_ms(torch, lambda: prefill(sp16, {"tokens": toks}), reps=1)
+        tok, cache = prefill(sp16, {"tokens": toks})
+        check(0 <= int(tok[0]) < cfg.padded_vocab and all(
+            bool(torch.isfinite(t.float()).all()) for leaf in T.tree_leaves(cache)
+            for t in leaf.cells), f"{label}: the bf16 mesh prefill gave no valid token or a "
+            "non-finite cache")
+        res["prefill_512_ms"] = ms
+        one = single_prefill_ms.get(arch)
+        log(f"  bf16 mesh prefill of 512 tokens: {ms:.2f} ms ({512 / ms * 1e3:.0f} tokens/s); "
+            f"phase 14's one-device prefill {one if one is None else f'{one:.2f}'} ms")
+        del sp16, cache, prefill
+        torch.cuda.empty_cache()
+
+        # (d) one AdamW mesh train step at a cut depth, float32 and float64;
+        # the full-depth weights are freed first (rwkv6's take 30 GB)
+        ct, pt = _first_layers(cfg, params, depth)
+        pt = T.tree_map(lambda _, t: t.clone(), pt)
+        del params
+        torch.cuda.empty_cache()
+        batch = {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in
+                 next(synthetic_lm_batches(cfg.vocab, MESH18_TRAIN_S, 2, seed=1)).items()}
+        oc = opt.OptConfig(lr=1e-3)
+        tr = {}
+        for dt in (torch.float32, torch.float64):
+            def state():
+                p = T.tree_map(lambda _, t: t.to(dt, copy=True), pt)
+                return lm.TrainState(p, opt.adam_init(p), torch.zeros((), dtype=torch.int32,
+                                                                      device=dev))
+            with _ForwardAt(dt):
+                s1, m1 = lm.make_train_step(ct, oc, compute_dtype=dt)(state(), batch)
+                kept = (m1["loss"].item(), T.tree_leaves(s1.params))
+                del s1
+                sm = shd.shard_train_state(ct, state(), mesh, shd.train_policy_for(ct, mesh))
+                s2, m2 = lm.make_train_step(ct, oc, mesh=mesh, compute_dtype=dt)(sm, batch)
+            gap, bad = 0.0, 0
+            for x, y in zip(kept[1], T.tree_leaves(shd.unshard_tree(s2.params))):
+                d = (x - y).abs()
+                gap = max(gap, d.max().item())
+                bad += int((d > MB_ATOL + MB_RTOL * x.abs()).sum())
+            tr[str(dt).split(".")[-1]] = {"loss_single": kept[0], "loss_mesh": m2["loss"].item(),
+                                          "params_max_abs": gap, "params_outside": bad}
+            del kept, sm, s2
+            torch.cuda.empty_cache()
+        res["train"] = dict(tr, layers=depth, batch=2, seq=MESH18_TRAIN_S)
+        f32, f64 = tr["float32"], tr["float64"]
+        rel = abs(f32["loss_mesh"] - f32["loss_single"]) / abs(f32["loss_single"])
+        log(f"  one AdamW train step at {depth} layers, B=2 x {MESH18_TRAIN_S} tokens (train "
+            f"policy), mesh against one device: float32 loss {f32['loss_mesh']:.6f} against "
+            f"{f32['loss_single']:.6f} (rel {rel:.3g}), params max|d| {f32['params_max_abs']:.3g}, "
+            f"{f32['params_outside']} outside atol {MB_ATOL} rtol {MB_RTOL}; float64 params "
+            f"max|d| {f64['params_max_abs']:.3g} (tolerance {F64_TOL})")
+        check(rel <= MB_LOSS_REL and f32["params_outside"] == 0
+              and f64["params_max_abs"] <= F64_TOL,
+              f"{label}: the mesh train step disagrees with one device: {tr}")
+        del ct, pt, batch
+        torch.cuda.empty_cache()
+
+        # (e) float64 at the deepest depth that fits
+        r64 = None
+        for d in (RG_F64_DEPTHS if rg else RWKV_F64_DEPTHS):
+            try:
+                c64, p64 = draw(full, d, torch.float64)
+                r64 = _mesh_vs_single(torch, c64, p64, mesh, torch.float64,
+                                      tokens(cfg.vocab, B, S, 2), steps, S + steps,
+                                      witness="ulp")
+                r64["layers"] = d
+                break
+            except torch.cuda.OutOfMemoryError:
+                log(f"  float64 at {d} layers does not fit beside what the card holds")
+            finally:
+                p64 = None
+                torch.cuda.empty_cache()
+        check(r64 is not None, f"{label}: no float64 depth fits")
+        res["f64"] = r64
+        log(f"  float64 at {r64['layers']} of {full.n_layers} layers, B={B} x {S} tokens, "
+            f"prefill + {steps} decode steps: max|d| {r64['max_abs']:.4g} (one device with "
+            f"every weight one ulp up {r64['ulp_max_abs']:.4g} from it; tolerance {F64_TOL} or "
+            f"{MESH_F64_WITNESS}x that), tokens equal {r64['tokens_equal']}, largest logit "
+            f"{r64['max_logit']:.6g}; seconds (single, mesh) {r64['seconds']}")
+        check(r64["max_abs"] <= max(F64_TOL, MESH_F64_WITNESS * r64["ulp_max_abs"])
+              and r64["tokens_equal"], f"{label} float64 mesh disagrees with one device: {r64}")
+        out["seconds"][arch] = time.perf_counter() - t0
+        log(f"{label}: {out['seconds'][arch]:.1f} s")
+
+    out["launches"] = {k_: w.launches for k_, w in wrappers.items()}
+    log(f"phase 18 launches of the four kernels on the recurrent mesh path: {out['launches']}")
+    check(not any(out["launches"].values()),
+          "phase 18: the recurrent mesh path launched a kernel it should not reach")
     out["seconds"]["total"] = time.perf_counter() - t_start
     return out
 
@@ -4298,7 +4614,15 @@ def main() -> int:
         "phi3_2_layers", "phi3_2_layers_falls", "timed", "olmoe", "pod", "mistral",
         "launches")}))
 
+    # -- 18. the recurrent blocks and the ring decode on a mesh ------------------------
+    t18 = time.perf_counter()
+    mrc = mesh_recurrent(torch, wrappers, dev, fam["prefill_512_ms"])
+    log(f"phase 18 took {time.perf_counter() - t18:.1f} s ({json.dumps(mrc['seconds'])})")
+    log("phase 18 recurrent mesh: " + json.dumps({k: mrc[k] for k in (
+        "recurrentgemma-2b", "rwkv6-7b", "launches")}))
+
     for k in kernels:
+        k["launches_mesh_recurrent"] = mrc["launches"][k["name"]]
         k["launches_mesh_lm"] = msv["launches"][k["name"]]
         k["launches_mesh_train"] = mtr["launches"][k["name"]]
         k["launches_mesh"] = launches_mesh.get(k["name"], 0)

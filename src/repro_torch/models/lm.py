@@ -90,14 +90,15 @@ def make_prefill_step(cfg: ModelConfig, *, mesh=None, serve_seq_shard=False,
     decode steps have slots to write into.
 
     ``mesh``: the prefill on the mesh's cells; the cache comes back laid
-    out for the mesh decode at ``max_seq`` positions (which must divide
-    over "model" when ``serve_seq_shard`` splits the cache's sequence)."""
+    out for the mesh decode at ``max_seq`` positions, or a window's ring of
+    ``min(window, S)`` slots (either must divide over "model" when
+    ``serve_seq_shard`` splits the cache's sequence)."""
     if mesh is not None:
         from repro_torch.models import mesh_forward
 
-        mesh_forward.check_servable(cfg)
         tp = mesh.shape.get("model", 1)
-        if serve_seq_shard and max_seq is not None and max_seq % tp:
+        full_kv = "attn" in T.layer_pattern(cfg) and not cfg.sliding_window
+        if serve_seq_shard and max_seq is not None and max_seq % tp and full_kv:
             raise ValueError(f"max_seq {max_seq} does not split over model={tp}")
 
         def prefill_mesh(params, batch):
@@ -134,11 +135,6 @@ def make_decode_step(cfg: ModelConfig, *, mesh=None, serve_seq_shard=False,
                      compute_dtype=torch.bfloat16):
     """The decode step; ``mesh``: on the mesh's cells, with the tokens,
     lengths and next tokens on the mesh's first device."""
-    if mesh is not None:
-        from repro_torch.models import mesh_forward
-
-        mesh_forward.check_servable(cfg)
-
     def decode(params, cache, tokens_or_embeds, lengths):
         """tokens [B] int (or embeds [B, D]); lengths [B] = cache fill.
         Writes the cache in place; returns (next tokens, cache, lengths + 1)."""
@@ -432,10 +428,6 @@ def make_train_step(
     axis syncs the gradients through :func:`compressed_pod_psum` (noise
     from :func:`pod_generator`); anywhere else it does nothing, as in the
     reference."""
-    if mesh is not None:
-        from repro_torch.models import mesh_forward
-
-        mesh_forward.check_servable(cfg)
     pod_sync = pod_compress and mesh is not None and "pod" in mesh.axis_names
     _, opt_update = opt_mod.make_optimizer(opt_cfg)
 

@@ -19,13 +19,17 @@ from repro_torch.models import layers as L
 C_SCALE = 8.0  # Griffin's c constant
 
 
-def _lru_coeffs(params, x):
+def _lru_coeffs(params, x, x_gates=None):
     """x [B, S, R] -> (a, b) with h_t = a_t h_{t-1} + b_t.  ``softplus`` is
     ``jax.nn.softplus``'s ``logaddexp(lam, 0)`` (``F.softplus`` switches to
-    the identity above 20)."""
+    the identity above 20).  ``x_gates``: the gates' input (default ``x``);
+    on a mesh the whole [B, S, R'] conv output, whose product with the
+    cell's columns of ``w_a`` / ``w_x`` gives the gates of ``x``'s
+    channels."""
     dt = x.dtype
-    r = torch.sigmoid(x @ params["w_a"].to(dt))
-    i = torch.sigmoid(x @ params["w_x"].to(dt))
+    xg = x if x_gates is None else x_gates
+    r = torch.sigmoid(xg @ params["w_a"].to(dt))
+    i = torch.sigmoid(xg @ params["w_x"].to(dt))
     lam = L.upcast(params["lam"])
     lam = torch.logaddexp(lam, torch.zeros_like(lam))
     log_a = -C_SCALE * lam * L.upcast(r)
@@ -35,9 +39,9 @@ def _lru_coeffs(params, x):
     return a, b
 
 
-def rg_lru_scan(params, x, h0=None):
+def rg_lru_scan(params, x, h0=None, x_gates=None):
     """RG-LRU over a sequence.  x [B, S, R] -> (y, h_last)."""
-    a, b = _lru_coeffs(params, x)
+    a, b = _lru_coeffs(params, x, x_gates)
     hp = torch.zeros_like(b[:, 0]) if h0 is None else h0.to(b.dtype)
     hs = []
     for t in range(x.shape[1]):
@@ -46,9 +50,9 @@ def rg_lru_scan(params, x, h0=None):
     return torch.stack(hs, dim=1).to(x.dtype), hp
 
 
-def rg_lru_step(params, x, h):
+def rg_lru_step(params, x, h, x_gates=None):
     """Single decode step.  x [B, R], h [B, R] -> (y, h_new)."""
-    a, b = _lru_coeffs(params, x[:, None])
+    a, b = _lru_coeffs(params, x[:, None], None if x_gates is None else x_gates[:, None])
     h_new = a[:, 0] * h + b[:, 0]
     return h_new.to(x.dtype), h_new
 

@@ -39,11 +39,12 @@ def _mix(x, xs, mu):
     return x + (xs - x) * mu.to(x.dtype)
 
 
-def _decay(params, xw):
-    """Data-dependent decay w_t in (0, 1).  xw [B, S, D] -> [B, S, D]."""
+def _decay(params, xw, cols=slice(None)):
+    """Data-dependent decay w_t in (0, 1).  xw [B, S, D] -> [B, S, D] (the
+    channels ``cols`` of it)."""
     dt = xw.dtype
-    lora = torch.tanh(xw @ params["w_lora_a"].to(dt)) @ params["w_lora_b"].to(dt)
-    return torch.exp(-torch.exp(L.upcast(params["w0"]) + L.upcast(lora)))
+    lora = torch.tanh(xw @ params["w_lora_a"].to(dt)) @ params["w_lora_b"][:, cols].to(dt)
+    return torch.exp(-torch.exp(L.upcast(params["w0"][cols]) + L.upcast(lora)))
 
 
 def _wkv_steps(r, k, v, w, u, s):
@@ -86,22 +87,35 @@ def _wkv_scan(r, k, v, w, u, s0=None, chunk: int = 64):
 def time_mix(params, x, *, cache=None):
     """RWKV6 attention replacement.  x [B, S, D] -> (y, new_cache).
     cache = {"s": [B,H,dh,dh], "x_prev": [B, D]} for decode."""
-    B, S, D = x.shape
-    H = D // HEAD_DIM
-    dt = x.dtype
     xs = _token_shift(x, None if cache is None else cache["x_prev"])
+    out, s_last = time_mix_heads(params, x, xs, slice(None),
+                                 None if cache is None else cache["s"])
+    return out, {"s": s_last, "x_prev": x[:, -1]}
+
+
+def time_mix_heads(params, x, xs, cols: slice, s0=None):
+    """The time mix of the heads whose channels are ``cols`` (whole heads)
+    from x [B, S, D] and its shift ``xs``: ``w_r``/``w_k``/``w_v``/``w_g``
+    hold those columns and ``w_o`` those rows (on a mesh, the cell's
+    blocks); ``w_lora_b``, ``w0``, ``u``, ``ln_w`` and ``ln_b`` are whole
+    and sliced here.  ``s0``: those heads' state.  Returns (their
+    product with ``w_o`` [B, S, D]: a row-parallel partial on a mesh,
+    their last state)."""
+    B, S, _ = x.shape
+    dt = x.dtype
     xr, xk, xv, xw, xg = (_mix(x, xs, params[f"mu_{c}"]) for c in "rkvwg")
     r = xr @ params["w_r"].to(dt)
     k = xk @ params["w_k"].to(dt)
     v = xv @ params["w_v"].to(dt)
     g = L.silu(xg @ params["w_g"].to(dt))
-    w = _decay(params, xw)
+    w = _decay(params, xw, cols)
+    C = r.shape[-1]
+    H = C // HEAD_DIM
 
     def hd(t):
         return t.reshape(B, S, H, HEAD_DIM)
 
-    u = L.upcast(params["u"]).reshape(H, HEAD_DIM)
-    s0 = None if cache is None else cache["s"]
+    u = L.upcast(params["u"][cols]).reshape(H, HEAD_DIM)
     # the decay is rounded to the compute dtype before the scan, as the
     # reference's is (in bf16, exp(-exp(-6)) rounds to 0.99609375 or 1)
     y, s_last = _wkv_scan(hd(r), hd(k), hd(v), hd(w.to(dt)), u, s0)
@@ -110,9 +124,8 @@ def time_mix(params, x, *, cache=None):
     mean = y.mean(-1, keepdim=True)
     var = y.var(-1, keepdim=True, correction=0)
     yn = (y - mean) * torch.rsqrt(var + 64e-5)
-    yn = yn.reshape(B, S, D) * L.upcast(params["ln_w"]) + L.upcast(params["ln_b"])
-    out = (yn.to(dt) * g) @ params["w_o"].to(dt)
-    return out, {"s": s_last, "x_prev": x[:, -1]}
+    yn = yn.reshape(B, S, C) * L.upcast(params["ln_w"][cols]) + L.upcast(params["ln_b"][cols])
+    return (yn.to(dt) * g) @ params["w_o"].to(dt), s_last
 
 
 def channel_mix(params, x, *, cache=None):

@@ -25,11 +25,10 @@ dropped, as JAX's ``.at[].set`` drops it.
 Block kinds: ``attn`` (with a dense or MoE FFN), ``rglru`` (the Griffin
 recurrent branch and the same FFN) and ``rwkv`` (time and channel mix).
 
-``mesh=``: the three modes of the ``attn`` archs on a mesh of cells, with
-the parameters laid out by ``distributed.sharding`` (the serve policy, its
-``mlp_2d`` layout, or the train policy; ``models/mesh_forward.py``).  The
-recurrent blocks and the ring (sliding-window) decode on a mesh are
-ROADMAP item 13g and raise.
+``mesh=``: the three modes of every block kind on a mesh of cells (a
+sliding window's ring included), with the parameters laid out by
+``distributed.sharding`` (the serve policy, its ``mlp_2d`` layout, or the
+train policy; ``models/mesh_forward.py``).
 """
 from __future__ import annotations
 
@@ -46,10 +45,6 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import rwkv6 as rwkv_mod
-
-_MESH_13G = ("ROADMAP item 13g (the recurrent blocks on a mesh and the ring "
-             "(sliding-window) decode)")
-
 
 # ---------------------------------------------------------------------------
 # structure

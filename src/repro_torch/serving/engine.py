@@ -32,8 +32,10 @@ a tree already laid out as ``Sharded`` leaves (e.g. the ``mlp_2d`` layout
 of ``ArchSpec.serve_mlp_2d``) is used as given, each block cast on its
 cell.  The bf16 cache is laid out on the cells (its slots split over the
 data axes when they divide, else replicated), and the slots' lengths and
-tokens stay on the mesh's first device.  The recurrent archs on a mesh are
-ROADMAP item 13g and raise.
+tokens stay on the mesh's first device.  Every block kind runs on a mesh;
+admission goes through the decode step, so it writes the slot's rows of
+every cache kind (k/v, a window's ring and ``pos``, RG-LRU's ``conv``/``h``,
+RWKV6's ``s``/``x_prev_*``) on the cells that hold them.
 
 The engine computes in bf16, as the reference's does.  Its float32
 weights are cast to bf16 once, except the leaves the forward reads in
@@ -75,9 +77,7 @@ class ServeEngine:
             if device is not None:
                 raise ValueError("a mesh engine runs on the mesh's devices: pass no device")
             from repro_torch.distributed.sharding import Sharded, shard_params
-            from repro_torch.models.mesh_forward import check_servable
 
-            check_servable(cfg)
             dev = mesh.home
         else:
             dev = resolve_device(device)

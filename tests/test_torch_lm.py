@@ -540,8 +540,8 @@ def test_mesh_paths_raise_with_their_roadmap_item():
     """Mesh serving and training are ported (tests/test_torch_mesh_lm.py,
     tests/test_torch_mesh_train.py): a train forward on a mesh gives the
     single-device logits (float32, 1e-4) and a train step on a mesh runs;
-    what stays unported raises naming ROADMAP item 13g: the recurrent
-    archs' mesh steps."""
+    so do the recurrent archs' mesh steps
+    (tests/test_torch_mesh_recurrent.py holds them)."""
     from repro_torch.distributed.sharding import shard_params, unshard_tree
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.training.optimizer import OptConfig
@@ -561,12 +561,20 @@ def test_mesh_paths_raise_with_their_roadmap_item():
     st, m = lm.make_train_step(cfg, OptConfig(), mesh=mesh)(
         st, dict(batch, labels=batch["tokens"]))
     assert np.isfinite(float(m["loss"])) and len(unshard_tree(st.params)) == len(pp)
-    with pytest.raises(NotImplementedError, match="13g"):
-        lm.make_decode_step(registry.smoke_config("rwkv6-7b"), mesh=mesh, serve_seq_shard=True)
-    with pytest.raises(NotImplementedError, match="13g"):
-        lm.make_prefill_step(registry.smoke_config("recurrentgemma-2b"), mesh=mesh)
-    with pytest.raises(NotImplementedError, match="13g"):
-        lm.make_train_step(registry.smoke_config("rwkv6-7b"), OptConfig(), mesh=mesh)
+    rw, rg = registry.smoke_config("rwkv6-7b"), registry.smoke_config("recurrentgemma-2b")
+    rwp = shard_params(rw, T.init_params(rw, torch.Generator().manual_seed(0)), mesh,
+                       serve_seq_shard=True)
+    tok, cache = lm.make_prefill_step(rw, mesh=mesh, serve_seq_shard=True)(rwp, batch)
+    nxt, _, lens = lm.make_decode_step(rw, mesh=mesh, serve_seq_shard=True)(
+        rwp, cache, tok, torch.full((1,), 4, dtype=torch.int32))
+    assert nxt.shape == (1,) and int(lens[0]) == 5
+    rgp = shard_params(rg, T.init_params(rg, torch.Generator().manual_seed(0)), mesh)
+    tok, cache = lm.make_prefill_step(rg, mesh=mesh)(rgp, batch)
+    assert tok.shape == (1,) and cache["blocks"][0]["2"]["pos"].shape == (1, 1, 4)
+    sw = shard_params(rw, T.init_params(rw, torch.Generator().manual_seed(0)), mesh)
+    st = lm.TrainState(sw, lm.opt_mod.adam_init(sw), torch.zeros((), dtype=torch.int32))
+    st, m = lm.make_train_step(rw, OptConfig(), mesh=mesh)(st, dict(batch, labels=batch["tokens"]))
+    assert np.isfinite(float(m["loss"]))
     with pytest.raises(ValueError, match="mode"):
         T.forward(cfg, pp, batch, mode="score")
 

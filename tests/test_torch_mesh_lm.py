@@ -17,8 +17,9 @@ cells.
   within 1e-4, float64 within 1e-10.
 - ``ServeEngine(mesh=)`` in bf16 against the single-device engine call by
   call (tests/test_torch_serving.py's ``_compare_calls``), flips pinned.
-- What stays unported raises naming ROADMAP item 13g; the paths ROADMAP
-  item 13f ported run (tests/test_torch_mesh_train.py holds them).
+- The paths ROADMAP items 13f and 13g ported run
+  (tests/test_torch_mesh_train.py and tests/test_torch_mesh_recurrent.py
+  hold them).
 """
 import dataclasses
 import itertools
@@ -623,13 +624,20 @@ def test_what_stays_unported_raises_naming_13f():
     for arch in ("recurrentgemma-2b", "rwkv6-7b"):
         rcfg = registry.smoke_config(arch)
         rp = T.init_params(rcfg, torch.Generator().manual_seed(0))
-        for call in (lambda: engine.ServeEngine(rcfg, rp, mesh=mesh),
-                     lambda: lm.make_decode_step(rcfg, mesh=mesh),
-                     lambda: lm.make_prefill_step(rcfg, mesh=mesh),
-                     lambda: lm.make_train_step(rcfg, lm.opt_mod.OptConfig(), mesh=mesh),
-                     lambda: T.init_cache(rcfg, 2, 8, mesh=mesh)):
-            with pytest.raises(NotImplementedError, match="13g"):
-                call()
+        rsp = shd.shard_params(rcfg, rp, mesh)
+        eng = engine.ServeEngine(rcfg, rp, mesh=mesh, n_slots=2, max_seq=8)
+        assert shd.cell_bytes(eng.cache, mesh) == shd.layout_bytes(eng.cache, mesh)
+        tok, cache = lm.make_prefill_step(rcfg, mesh=mesh)(rsp, batch)
+        nxt, cache, lens = lm.make_decode_step(rcfg, mesh=mesh)(
+            rsp, cache, tok, torch.full((2,), 4, dtype=torch.int32))
+        assert nxt.shape == (2,) and lens.tolist() == [5, 5]
+        st = lm.TrainState(rsp, lm.opt_mod.adam_init(rsp), torch.zeros((), dtype=torch.int32))
+        st, m = lm.make_train_step(rcfg, lm.opt_mod.OptConfig(), mesh=mesh)(
+            st, dict(batch, labels=batch["tokens"]))
+        assert np.isfinite(float(m["loss"]))
+        empty = T.init_cache(rcfg, 2, 8, mesh=mesh)
+        assert [t.shape for t in T.tree_leaves(empty)] == \
+            [tuple(t.shape) for t in T.tree_leaves(T.init_cache(rcfg, 2, 8, device="cpu"))]
     # no silent fallback: unsharded parameters on a mesh are refused
     with pytest.raises(TypeError, match="shard_params"):
         T.forward(cfg, pp, batch, mode="prefill", mesh=mesh)

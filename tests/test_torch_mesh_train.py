@@ -591,21 +591,31 @@ def test_mesh_engine_serves_the_mlp_2d_tree_as_given():
 
 
 # ---------------------------------------------------------------------------
-# what stays unported
+# the recurrent blocks on a mesh
 # ---------------------------------------------------------------------------
 
 def test_recurrent_blocks_on_a_mesh_raise_naming_13g():
+    """The recurrent archs run on a mesh (tests/test_torch_mesh_recurrent.py
+    holds them against one device and the reference): the train step, the
+    loss, the train forward and the engine, each with a finite result."""
     mesh = _mesh("2x2")
     for arch in ("recurrentgemma-2b", "rwkv6-7b"):
         cfg = registry.smoke_config(arch)
         pp = T.init_params(cfg, torch.Generator().manual_seed(0))
+        sp = shd.shard_params(cfg, pp, mesh, policy=shd.train_policy_for(cfg, mesh))
         b = _batch(cfg, 2, 8, seed=0)
-        for call in (lambda: lm.make_train_step(cfg, opt.OptConfig(), mesh=mesh),
-                     lambda: lm.lm_loss(cfg, pp, b, mesh=mesh),
-                     lambda: T.forward(cfg, pp, b, mode="train", mesh=mesh),
-                     lambda: engine.ServeEngine(cfg, pp, mesh=mesh)):
-            with pytest.raises(NotImplementedError, match="13g"):
-                call()
+        st = lm.TrainState(sp, opt.adam_init(sp), torch.zeros((), dtype=torch.int32))
+        st, m = lm.make_train_step(cfg, opt.OptConfig(), mesh=mesh)(st, b)
+        assert math.isfinite(float(m["loss"])) and int(st.step) == 1
+        with torch.no_grad():
+            assert math.isfinite(float(lm.lm_loss(cfg, sp, b, mesh=mesh)))
+            logits, _ = T.forward(cfg, sp, b, mode="train", mesh=mesh)
+        assert logits.shape == (2, 8, cfg.padded_vocab)
+        eng = engine.ServeEngine(cfg, pp, mesh=mesh, n_slots=2, max_seq=16)
+        req = engine.Request(rid=0, prompt=np.array([1, 2, 3], np.int32), max_new_tokens=2)
+        eng.submit(req)
+        eng.run()
+        assert req.done and len(req.out) == 2
     # no fallback: cells asked for on the card need the card
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):

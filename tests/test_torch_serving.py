@@ -306,8 +306,9 @@ def test_engine_reports_spans_and_metrics():
 
 
 def test_engine_refuses_mesh_and_needs_a_device():
-    """The recurrent archs on a mesh are ROADMAP item 13g; a mesh engine
-    takes its devices from the mesh; without either it needs the card."""
+    """The recurrent archs serve on a mesh (tests/test_torch_mesh_recurrent.py
+    holds them against one device); a mesh engine takes its devices from
+    the mesh; without either it needs the card."""
     from repro_torch.launch.mesh import make_mesh
 
     mesh = make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4)
@@ -315,9 +316,12 @@ def test_engine_refuses_mesh_and_needs_a_device():
     params = T.init_params(cfg, torch.Generator().manual_seed(0))
     for arch in ("recurrentgemma-2b", "rwkv6-7b"):
         rcfg = registry.smoke_config(arch)
-        with pytest.raises(NotImplementedError, match="13g"):
-            engine.ServeEngine(rcfg, T.init_params(rcfg, torch.Generator().manual_seed(0)),
-                               mesh=mesh)
+        eng = engine.ServeEngine(rcfg, T.init_params(rcfg, torch.Generator().manual_seed(0)),
+                                 mesh=mesh, n_slots=2, max_seq=16)
+        req = engine.Request(rid=0, prompt=np.array([5, 6], np.int32), max_new_tokens=3)
+        eng.submit(req)
+        eng.run()
+        assert req.done and len(req.out) == 3
     with pytest.raises(ValueError, match="device"):
         engine.ServeEngine(cfg, params, device="cpu", mesh=mesh)
     if not torch.cuda.is_available():

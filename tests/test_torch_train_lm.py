@@ -195,8 +195,10 @@ def test_mesh_and_pod_sync_raise_with_their_roadmap_item():
     """The mesh train step and the pod sync are ported
     (tests/test_torch_mesh_train.py); as in the reference, ``pod_compress``
     does nothing without a mesh that has a "pod" axis: the step is
-    bit-equal to the one without it.  A recurrent arch's mesh step stays
-    ROADMAP item 13g."""
+    bit-equal to the one without it.  A recurrent arch's mesh step with it
+    on a mesh that has a "pod" axis runs the sync
+    (tests/test_torch_mesh_recurrent.py holds it)."""
+    from repro_torch.distributed.sharding import shard_params
     from repro_torch.launch.mesh import make_mesh
 
     cfg = registry.smoke_config("phi3-mini-3.8b")
@@ -208,10 +210,13 @@ def test_mesh_and_pod_sync_raise_with_their_roadmap_item():
     sb, mb = lm.make_train_step(cfg, oc, remat=False, pod_compress=True)(b, batch)
     assert torch.equal(ma["grad_norm"], mb["grad_norm"])
     assert all(torch.equal(x, y) for x, y in zip(T.tree_leaves(sa.params), T.tree_leaves(sb.params)))
-    mesh = make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4)
-    with pytest.raises(NotImplementedError, match="13g"):
-        lm.make_train_step(registry.smoke_config("recurrentgemma-2b"), opt.OptConfig(),
-                           mesh=mesh, pod_compress=True)
+    mesh = make_mesh((2, 1, 2), ("pod", "data", "model"), devices=["cpu"] * 4)
+    rcfg = registry.smoke_config("recurrentgemma-2b")
+    sp = shard_params(rcfg, T.init_params(rcfg, torch.Generator().manual_seed(0)), mesh)
+    st = lm.TrainState(sp, opt.adam_init(sp), torch.zeros((), dtype=torch.int32))
+    rb = {k: _t(v) for k, v in _batch(rcfg, 2, 8, 5).items()}
+    st, m = lm.make_train_step(rcfg, opt.OptConfig(), mesh=mesh, pod_compress=True)(st, rb)
+    assert np.isfinite(float(m["loss"])) and int(st.step) == 1
 
 
 def test_train_loss_goes_down_tiny_lm():
