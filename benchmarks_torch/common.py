@@ -7,13 +7,12 @@ import time
 import torch
 
 # NVIDIA H100 SXM5 80GB, NVIDIA's data sheet (dense rates, 700 W board
-# power): the figures every modelled row prices against.  A card run below
-# 700 W (``nvidia-smi --query-gpu=power.limit``) is slower than these.
-PEAK_FP32_FLOPS = 67e12       # float32 outside the tensor cores
-PEAK_BF16_FLOPS = 989.4e12    # bf16 on the tensor cores, dense
-HBM_BYTES = 80e9              # 80 GB of HBM3
-HBM_BW = 3.35e12              # bytes/s of HBM3
-NVLINK_BW = 450e9             # bytes/s each way (NVLink 4, 900 GB/s total)
+# power): the figures every modelled row prices against, kept with the
+# deployment mesh in ``repro_torch.launch.mesh``.  A card run below 700 W
+# (``nvidia-smi --query-gpu=power.limit``) is slower than these.
+from repro_torch.launch.mesh import (HBM_BW, HBM_BYTES, NVLINK_BW,  # noqa: F401
+                                     PEAK_BF16_FLOPS, PEAK_FP32_FLOPS)
+
 # The slow link of the two-level reduction is modelled, not measured: a
 # PCIe Gen 5 x16 link between hosts' switches, 64 GB/s each way (PCI-SIG:
 # 32 GT/s x 16 lanes, 128b/130b coding).

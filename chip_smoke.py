@@ -224,6 +224,28 @@ Phases, in order; any failure stops the run with a non-zero exit:
    1e-7; rwkv6 at 128 tokens: its chunked WKV scan) and float64 at the
    deepest depth that fits (1e-7).  The path launches none of the four
    kernels.
+19. the dry-run against the card (``dryrun_on_card``): production cells of
+   the H100 deployment (``launch.mesh.make_production_mesh``) with the
+   data axis cut to 1, one model group of 8 cells on ``cuda:0`` at the
+   production cell's per-cell shapes: (a) the netflix SU-ALS wave (16384
+   rows, K_loc 512, Theta over 8 cells, f=100, synthetic ratings from seed
+   0) through ``fused_herm`` and ``batch_solve`` (both must launch; A and
+   B of every cell and row block against the plain version at 2e-4/1e-4,
+   each owned slice's solve at 5e-4, the wave against its plain run at
+   2e-3); (b) phi3-mini-3.8b ``decode_32k`` at full width, 4 of 32 layers
+   (4 rows a cell, 32768 positions, 4 kv heads a cell): a prefill step of
+   4 x 32768 tokens and 3 decode steps, the dry-run's units x 8 cells
+   equal to ``FlopCounterMode`` over a whole decode step and a whole
+   2048-token prefill on the CUDA cells (and the decode's equal on meta
+   cells), the allocator's peak within 1.25x of the dry-run's
+   one-working-set estimate, no kernel launched; in (a) and (b) the
+   allocator's peak must lie between the meta dry-run's arguments +
+   outputs and its live-set estimate for the same layout, and each
+   measured time at or above the roofline bound of the same work; (c) ``launch.dryrun.run_cell`` and
+   ``benchmarks_torch/roofline.py``'s ``roofline_cell`` on meta cells for
+   phi3-mini-3.8b x {train_4k, decode_32k} and the netflix wave at the
+   real production shapes, each record's fits, live set, terms and
+   dominant term printed, each required to fit.
 
 The second-to-last line of output is a JSON ``kernels`` record (with each
 kernel's ``launches_mesh``, its launches in phase 11's runs,
@@ -231,7 +253,8 @@ kernel's ``launches_mesh``, its launches in phase 11's runs,
 ``launches_lm``, its launches in phase 13's full-width factorization,
 ``launches_mesh_lm``, its launches in phase 16 (none),
 ``launches_mesh_train``, its launches in phase 17 (none),
-``launches_mesh_recurrent``, its launches in phase 18 (none), and
+``launches_mesh_recurrent``, its launches in phase 18 (none),
+``launches_dryrun``, its launches in phase 19's ALS wave, and
 for the ALS kernels ``max_abs_err_mesh``, their error against the plain
 versions at 11b's shapes, ``max_abs_err_lm`` at phase 13's, and
 ``max_abs_err_entry_points`` for the three training kernels at phase 12's
@@ -272,6 +295,11 @@ MESH_TOL = 1e-4                        # tests/test_distributed.py:110-111,
                                        # tests/test_mesh_streaming.py:189-192, :354-356
 PLAN_PEAK_INT64 = 126_199_808          # phase 10c's plan build before its int32 form
 PLAIN_CHUNK_ELEMS = 1 << 28            # gathered floats per plain-version chunk
+LM_DRYRUN_LAYERS = 4                   # phase 19's phi3-mini depth: ~8 GB of one model group
+LM_DRYRUN_SEQ = 32768                  # decode_32k's cache positions
+LM_DRYRUN_ROWS = 128 // 32             # decode_32k's rows a data shard of the 32 x 8 deployment
+LM_FLOPS_SEQ = 2048                    # phase 19's prefill counted whole: 4 chunks a side
+PEAK_EST_FACTOR = 1.25                 # the card's LM peak within this of the one-working-set estimate
 
 
 def log(*args) -> None:
@@ -3007,6 +3035,347 @@ def mesh_recurrent(torch, wrappers: dict, dev, single_prefill_ms: dict) -> dict:
     return out
 
 
+def _als_wave_data(torch, dev, m: int, p: int, k_loc: int, n_pad: int, f: int, seed: int = 0):
+    """Synthetic ratings for one update-X wave in ``build_als_cell``'s
+    layout, from ``seed``: each of ``m`` rows rates a geometric number of
+    each column shard's items (netflix's mean, 206 a row, over ``p``
+    shards, at most ``k_loc``), values 1-5; theta ~ N(0, 0.1^2)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    npp = n_pad // p
+    cnt = np.minimum(rng.geometric(p / 206.0, size=(m, p)), k_loc).astype(np.int32)
+    slot = np.arange(k_loc)[None, None, :]
+    live = slot < cnt[:, :, None]
+    idx = np.where(live, rng.integers(0, npp, size=(m, p, k_loc)), 0).astype(np.int32)
+    val = np.where(live, rng.integers(1, 6, size=(m, p, k_loc)), 0).astype(np.float32)
+    theta = (rng.standard_normal((n_pad, f)) * 0.1).astype(np.float32)
+    return (torch.from_numpy(theta).to(dev),
+            torch.from_numpy(idx.reshape(m, p * k_loc)).to(dev),
+            torch.from_numpy(val.reshape(m, p * k_loc)).to(dev),
+            torch.from_numpy(cnt).to(dev), int(cnt.sum()))
+
+
+_DRYRUN_CHILD = """
+import dataclasses, json, sys
+sys.path[:0] = sys.argv[1:3]
+from benchmarks_torch import roofline
+from repro_torch.configs import registry
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun, units
+from repro_torch.launch.mesh import make_mesh
+layers, seq, rows, short = (int(a) for a in sys.argv[3:7])
+spec = registry.get_arch('phi3-mini-3.8b')
+spec = dataclasses.replace(spec, model=dataclasses.replace(spec.model, n_layers=layers))
+meta8 = make_mesh((1, 8), ('data', 'model'), devices=['meta'] * 8)
+out = {'cut': {}, 'full': {}}
+for kind, name in (('prefill', 'prefill_32k'), ('decode', 'decode_32k')):
+    out['cut'][kind] = dryrun.run_cell('phi3-mini-3.8b', name, spec=spec,
+                                       shape=ShapeConfig(name, seq, rows, kind), mesh=meta8)
+out['cut']['prefill_short'] = units.cost_cell(
+    spec, ShapeConfig('prefill_32k', short, rows, 'prefill'), meta8)['flops_by_dtype']
+for name in ('train_4k', 'decode_32k'):
+    out['full'][name] = {'dryrun': dryrun.run_cell('phi3-mini-3.8b', name),
+                         'roofline': roofline.roofline_cell('phi3-mini-3.8b', name, save=False)}
+out['full']['netflix'] = {'roofline': roofline.als_roofline_cell('netflix', save=False)}
+print(json.dumps(out))
+"""
+
+
+def _fill_random(torch, tree, seed: int) -> None:
+    """Every distinct floating cell tensor of a tree of ``Sharded`` leaves
+    drawn from N(0, 0.02^2) with a generator seeded ``seed``."""
+    from repro_torch.distributed.sharding import Sharded
+    from repro_torch.models import transformer as T
+
+    gen, seen = None, set()
+    for leaf in T.tree_leaves(tree):
+        for t in (leaf.cells if isinstance(leaf, Sharded) else [leaf]):
+            if id(t) in seen or not t.is_floating_point():
+                continue
+            seen.add(id(t))
+            if gen is None:
+                gen = torch.Generator(device=t.device).manual_seed(seed)
+            t.normal_(0.0, 0.02, generator=gen)
+
+
+def _peak_since(torch, base: int) -> int:
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def _fresh_base(torch) -> int:
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _needed_bytes(mem: dict) -> int:
+    """What a step must hold at its end: its arguments and what it returns
+    beside the arguments it writes in place."""
+    return mem["argument_bytes"] + mem["output_bytes"] - mem["alias_bytes"]
+
+
+def dryrun_on_card(torch, wrappers: dict, dev) -> dict:
+    """Phase 19: the dry-run against the card.  Each check builds a
+    production cell with the data axis cut to 1, so that one model group
+    of 8 cells shares ``cuda:0``, at the production cell's own per-cell
+    shapes, and holds the card's allocator peak between the meta dry-run's
+    arguments + outputs and its live-set estimate for the same layout
+    (``memory["device"]``: every cell on one device), and the card's time
+    at or above the roofline bound of the same work.
+
+    (a) the netflix SU-ALS wave on data=1 x model=8: one data shard of the
+    production wave (its rows from the production cell's ``meta``),
+    K_loc = 512, Theta over 8 cells, f = 100, synthetic ratings from seed
+    0; the wave through ``fused_herm`` and ``batch_solve`` (both must
+    launch), each cell's A and B of every row block against the plain
+    version (``HERM_ATOL``/``HERM_RTOL``), each owned slice's solve
+    (``SOLVE_TOL``), the wave against its plain run (``SU_TOL``);
+    (b) phi3-mini-3.8b ``decode_32k`` at full width on data=1 x model=8 (4
+    rows a cell, 32768 cache positions, 4 kv heads a cell), 4 of 32
+    layers, random weights from seed 0: a ``build_prefill_cell`` step of
+    4 x 32768 tokens and 3 ``build_decode_cell`` steps; the allocator's
+    peak also within ``PEAK_EST_FACTOR`` of the one-working-set estimate
+    (the live set may exceed the card); the dry-run's units x 8 cells equal
+    to ``FlopCounterMode`` over a whole decode step and a whole prefill of
+    ``LM_FLOPS_SEQ`` tokens on the CUDA cells, and the decode's count the
+    same on the meta cells; none of the four kernels launched;
+    (c) ``run_cell`` and ``roofline_cell`` on meta for phi3-mini-3.8b x
+    {train_4k, decode_32k} and ``run_als_cell("netflix")`` at the real
+    production shapes, each record's fits, live set, terms and dominant
+    term on a line of its own.
+    """
+    import dataclasses
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from benchmarks_torch import roofline
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import su_als
+    from repro_torch.kernels import ops
+    from repro_torch.launch import builders, dryrun
+    from repro_torch.launch.mesh import make_mesh
+
+    t_start = time.perf_counter()
+    out: dict = {"seconds": {}}
+    torch.cuda.empty_cache()
+    log(f"phase 19 starts with {torch.cuda.memory_allocated()} B allocated by earlier phases")
+    meta8 = make_mesh((1, 8), ("data", "model"), devices=["meta"] * 8)
+    card8 = make_mesh((1, 8), ("data", "model"), devices=[dev] * 8)
+    for w in wrappers.values():
+        w.launches = 0
+    # the meta dry-runs of (b) and (c) cost their cells in a process of their
+    # own, on other host cores, while this one drives the card
+    child = subprocess.Popen(
+        [sys.executable, "-c", _DRYRUN_CHILD, str(SRC), str(ROOT), str(LM_DRYRUN_LAYERS),
+         str(LM_DRYRUN_SEQ), str(LM_DRYRUN_ROWS), str(LM_FLOPS_SEQ)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        # (a) the netflix wave ----------------------------------------------------------------
+        t0 = time.perf_counter()
+        prod = dryrun.run_als_cell("netflix")
+        rows = prod["meta"]["m_wave"] // prod["meta"]["q"]
+        cut = dryrun.run_als_cell("netflix", mesh=meta8, m_wave=rows)
+        meta = cut["meta"]
+        p, k_loc, f = meta["p"], meta["k_loc"], meta["f"]
+        cell = builders.build_als_cell("netflix", card8, m_wave=rows)
+        update_x, n_pad = cell.fn, cell.args[0].shape[0]
+        del cell                                # its zero arguments: the wave gets ratings
+        base = _fresh_base(torch)
+        theta, idx, val, cnt, nnz = _als_wave_data(torch, dev, rows, p, k_loc, n_pad, f)
+        args = (theta, idx, val, cnt)
+        x = update_x(*args)
+        peak = _peak_since(torch, base)
+        launches_wave = {k: w.launches for k, w in wrappers.items()}
+        mem = cut["memory"]["device"]
+        log(f"19a netflix wave on data=1 x model=8 (cuda:0): {rows} rows, K_loc {k_loc}, p {p}, "
+            f"f {f}, {nnz} ratings; allocator peak {peak} B between arguments + outputs "
+            f"{_needed_bytes(mem)} B and the dry-run's live set "
+            f"{mem['live_set_estimate_bytes']} B; launches {launches_wave}")
+        check(launches_wave["fused_herm"] > 0 and launches_wave["batch_solve"] > 0,
+              f"19a: the wave launched {launches_wave}")
+        check(_needed_bytes(mem) <= peak <= mem["live_set_estimate_bytes"],
+              f"19a: allocator peak {peak} outside [{_needed_bytes(mem)}, "
+              f"{mem['live_set_estimate_bytes']}]")
+        ms = cuda_ms(torch, lambda: update_x(*args), reps=3)
+        bound = roofline.bound_on_one_device(
+            {"float32": roofline.als_useful_flops(nnz, rows, f)},
+            roofline.als_min_bytes(nnz, n_pad, rows, p, f))
+        log(f"19a wave {ms:.3f} ms on CUDA events; roofline bound {bound['bound_s'] * 1e3:.4f} ms "
+            f"({bound['dominant']}: {json.dumps(bound['terms_s'])})")
+        check(ms >= bound["bound_s"] * 1e3, f"19a: {ms} ms under its bound {bound}")
+        # the kernels against their plain versions at the wave's shapes
+        x_plain = su_als.make_su_als_fns(card8, 0.05, mode="ref", row_block=meta["row_block"])[0](
+            *args)
+        dx = (x - x_plain).abs().max().item()
+        herm_err = solve_err = 0.0
+        npp, rb = n_pad // p, meta["row_block"]
+        for lo in range(0, rows, rb):
+            As, Bs = [], []
+            for k in range(p):
+                blk = (theta[k * npp:(k + 1) * npp], idx[lo:lo + rb, k * k_loc:(k + 1) * k_loc],
+                       val[lo:lo + rb, k * k_loc:(k + 1) * k_loc], cnt[lo:lo + rb, k])
+                A, B = ops.fused_herm(*blk, 0.05, mode="kernel", diag_fallback=False)
+                Ap, Bp = ops.fused_herm(*blk, 0.05, mode="ref", diag_fallback=False)
+                check(torch.allclose(A, Ap, atol=HERM_ATOL, rtol=HERM_RTOL)
+                      and torch.allclose(B, Bp, atol=HERM_ATOL, rtol=HERM_RTOL),
+                      f"19a: fused_herm disagrees with its plain version at rows {lo}, shard {k}")
+                herm_err = max(herm_err, (A - Ap).abs().max().item(), (B - Bp).abs().max().item())
+                As.append(A)
+                Bs.append(B)
+            A_sum, B_sum = sum(As), sum(Bs)
+            empty = (cnt[lo:lo + rb].sum(dim=1) <= 0).to(torch.float32)
+            A_sum.diagonal(dim1=-2, dim2=-1).add_(empty[:, None])
+            for k in range(p):
+                sl = slice(k * rb // p, (k + 1) * rb // p)
+                xs = ops.batch_solve(A_sum[sl], B_sum[sl], mode="kernel")
+                xp = ops.batch_solve(A_sum[sl], B_sum[sl], mode="ref")
+                solve_err = max(solve_err, (xs - xp).abs().max().item())
+            del As, Bs, A_sum, B_sum
+        log(f"19a against the plain versions: fused_herm max|d| {herm_err:.3g} "
+            f"(atol {HERM_ATOL}, rtol {HERM_RTOL}), batch_solve {solve_err:.3g} ({SOLVE_TOL}), "
+            f"the wave {dx:.3g} ({SU_TOL})")
+        check(solve_err <= SOLVE_TOL, f"19a: batch_solve {solve_err} from its plain version")
+        check(dx <= SU_TOL, f"19a: the wave {dx} from its plain run")
+        out["als"] = {"rows": rows, "nnz": nnz, "ms": ms, "bound_ms": bound["bound_s"] * 1e3,
+                      "peak_bytes": peak, "needed_bytes": _needed_bytes(mem),
+                      "live_set_bytes": mem["live_set_estimate_bytes"], "launches": launches_wave,
+                      "herm_max_abs_err": herm_err, "solve_max_abs_err": solve_err,
+                      "wave_max_abs_err": dx}
+        del x, x_plain, args, theta, idx, val, cnt
+        out["seconds"]["als"] = time.perf_counter() - t0
+
+        # (b) phi3-mini-3.8b decode_32k cut to data=1 and 4 layers -----------------------------
+        t0 = time.perf_counter()
+        for w in wrappers.values():
+            w.launches = 0
+        spec = registry.get_arch("phi3-mini-3.8b")
+        full = spec.model
+        spec = dataclasses.replace(spec, model=dataclasses.replace(full, n_layers=LM_DRYRUN_LAYERS))
+        shapes = {"prefill": ShapeConfig("prefill_32k", LM_DRYRUN_SEQ, LM_DRYRUN_ROWS, "prefill"),
+                  "decode": ShapeConfig("decode_32k", LM_DRYRUN_SEQ, LM_DRYRUN_ROWS, "decode")}
+        runs = {}
+        for kind, s in shapes.items():
+            base = _fresh_base(torch)
+            cell = builders.build_cell("phi3-mini-3.8b", s.name, card8, spec=spec, shape=s)
+            _fill_random(torch, cell.args[0], seed=0)
+            if kind == "decode":
+                cell.args[3].cells[0].fill_(s.seq - 8)         # lengths: room for the 3 steps
+            step_ms = []
+            for _ in range(1 if kind == "prefill" else 3):
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                res_ = cell.fn(*cell.args)
+                stop.record()
+                torch.cuda.synchronize()
+                step_ms.append(start.elapsed_time(stop))
+                if kind == "decode":
+                    cell.args[3].cells[0].add_(1)
+                del res_
+            runs[kind] = {"ms": step_ms, "peak_bytes": _peak_since(torch, base)}
+            if kind == "decode":
+                with FlopCounterMode(display=False) as fc:
+                    cell.fn(*cell.args)
+                mcell = builders.build_cell("phi3-mini-3.8b", s.name, meta8, spec=spec, shape=s)
+                with FlopCounterMode(display=False) as fm:
+                    mcell.fn(*mcell.args)
+                runs[kind]["flops_cuda"], runs[kind]["flops_meta"] = (fc.get_total_flops(),
+                                                                      fm.get_total_flops())
+            del cell
+        # the whole prefill under the counter at a short sequence: at 32768
+        # tokens it issues ~2.6 M ops, and the counter adds ~0.2 ms an op
+        short = ShapeConfig("prefill_32k", LM_FLOPS_SEQ, LM_DRYRUN_ROWS, "prefill")
+        cell = builders.build_cell("phi3-mini-3.8b", short.name, card8, spec=spec, shape=short)
+        with FlopCounterMode(display=False) as fc:
+            cell.fn(*cell.args)
+        runs["prefill"]["flops_cuda_short"] = fc.get_total_flops()
+        del cell
+        launches_lm = {k: w.launches for k, w in wrappers.items()}
+        stdout, stderr = child.communicate(timeout=600)
+        check(child.returncode == 0, f"19: the meta dry-run process failed:\n{stderr[-4000:]}")
+        meta_recs = json.loads(stdout.strip().splitlines()[-1])
+        res = {}
+        units_flops = {k: sum(meta_recs["cut"][k]["cost"]["flops_by_dtype"].values())
+                       * meta8.size for k in shapes}
+        units_flops["prefill_short"] = sum(meta_recs["cut"]["prefill_short"].values()) * meta8.size
+        for kind, s in shapes.items():
+            mem = meta_recs["cut"][kind]["memory"]["device"]
+            flops_total = {k: v * meta8.size
+                           for k, v in meta_recs["cut"][kind]["cost"]["flops_by_dtype"].items()}
+            bound = roofline.bound_on_one_device(flops_total, _needed_bytes(mem))
+            r, ms = runs[kind], min(runs[kind]["ms"])
+            log(f"19b phi3-mini-3.8b {kind} ({LM_DRYRUN_LAYERS} of {full.n_layers} layers, "
+                f"{LM_DRYRUN_ROWS} x {s.seq} on data=1 x model=8, cuda:0): ms "
+                f"{[round(t, 3) for t in r['ms']]}; roofline bound {bound['bound_s'] * 1e3:.4f} ms "
+                f"({bound['dominant']}); allocator peak {r['peak_bytes']} B between "
+                f"{_needed_bytes(mem)} B and the live set {mem['live_set_estimate_bytes']} B")
+            check(_needed_bytes(mem) <= r["peak_bytes"] <= mem["live_set_estimate_bytes"],
+                  f"19b {kind}: allocator peak {r['peak_bytes']} outside [{_needed_bytes(mem)}, "
+                  f"{mem['live_set_estimate_bytes']}]")
+            # the live set (two working sets) may exceed the card, so the peak
+            # is also held to the one-working-set estimate, which can fail
+            est = mem["peak_estimate_bytes"]
+            log(f"19b {kind}: allocator peak / the dry-run's one-working-set estimate {est} B = "
+                f"{r['peak_bytes'] / est:.4f} (within {PEAK_EST_FACTOR}x either way)")
+            check(est / PEAK_EST_FACTOR <= r["peak_bytes"] <= est * PEAK_EST_FACTOR,
+                  f"19b {kind}: allocator peak {r['peak_bytes']} not within {PEAK_EST_FACTOR}x "
+                  f"of the one-working-set estimate {est}")
+            check(ms >= bound["bound_s"] * 1e3, f"19b {kind}: {ms} ms under its bound {bound}")
+            res[kind] = dict(r, bound_ms=bound["bound_s"] * 1e3, dominant=bound["dominant"],
+                             needed_bytes=_needed_bytes(mem), peak_estimate_bytes=est,
+                             live_set_bytes=mem["live_set_estimate_bytes"],
+                             flops_units=units_flops[kind])
+        res["prefill"]["flops_units_short"] = units_flops["prefill_short"]
+        log(f"19b decode step flops: the dry-run's units x 8 cells {units_flops['decode']}, "
+            f"FlopCounterMode over the step on the CUDA cells {res['decode']['flops_cuda']}, "
+            f"on the meta cells {res['decode']['flops_meta']}")
+        log(f"19b prefill of {LM_FLOPS_SEQ} tokens a row, flops: the units x 8 cells "
+            f"{units_flops['prefill_short']}, FlopCounterMode over the step on the CUDA cells "
+            f"{res['prefill']['flops_cuda_short']}")
+        check(units_flops["decode"] == res["decode"]["flops_cuda"] > 0,
+              "19b: the dry-run's units miscount the decode step")
+        check(units_flops["prefill_short"] == res["prefill"]["flops_cuda_short"] > 0,
+              "19b: the dry-run's units miscount the prefill step")
+        check(res["decode"]["flops_cuda"] == res["decode"]["flops_meta"],
+              "19b: FlopCounterMode differs on the CUDA and the meta cells")
+        res["launches"] = launches_lm
+        check(not any(launches_lm.values()),
+              f"19b: the LM path launched a kernel it should not reach: {launches_lm}")
+        out["lm"] = res
+        out["seconds"]["lm"] = time.perf_counter() - t0
+
+        # (c) the full dry-run on meta (from the same process) ---------------------------------
+        full_recs = {}
+        for shape_name in ("train_4k", "decode_32k"):
+            d, r = (meta_recs["full"][shape_name][k] for k in ("dryrun", "roofline"))
+            full_recs[shape_name] = {
+                "fits": d["memory"]["fits"],
+                "live_set_estimate_bytes": d["memory"]["live_set_estimate_bytes"],
+                "terms_s": r["terms_s"], "dominant": r["dominant"],
+                "flops_per_cell": r["hlo_flops_per_device"],
+                "collective_bytes_per_cell": r["collective_bytes_per_device"]}
+        ra = meta_recs["full"]["netflix"]["roofline"]
+        full_recs["netflix"] = {
+            "fits": prod["memory"]["fits"],
+            "live_set_estimate_bytes": prod["memory"]["live_set_estimate_bytes"],
+            "terms_s": ra["terms_s"], "dominant": ra["dominant"]}
+        for name, r in full_recs.items():
+            log(f"19c dry-run {name} on the 32x8 H100 deployment (meta cells): " + json.dumps(r))
+            check(r["fits"], f"19c: {name} does not fit its 80 GB a cell")
+        out["full"] = full_recs
+        out["launches"] = {k: launches_wave[k] for k in wrappers}
+        out["seconds"]["total"] = time.perf_counter() - t_start
+        return out
+    finally:            # the child never outlives the phase
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+
+
 def main() -> int:
     import torch
 
@@ -4621,11 +4990,18 @@ def main() -> int:
     log("phase 18 recurrent mesh: " + json.dumps({k: mrc[k] for k in (
         "recurrentgemma-2b", "rwkv6-7b", "launches")}))
 
+    # -- 19. the dry-run against the card ---------------------------------------------
+    t19 = time.perf_counter()
+    dry = dryrun_on_card(torch, wrappers, dev)
+    log(f"phase 19 took {time.perf_counter() - t19:.1f} s ({json.dumps(dry['seconds'])})")
+    log("phase 19 dry-run: " + json.dumps({k: dry[k] for k in ("als", "lm", "full")}))
+
     for k in kernels:
         k["launches_mesh_recurrent"] = mrc["launches"][k["name"]]
         k["launches_mesh_lm"] = msv["launches"][k["name"]]
         k["launches_mesh_train"] = mtr["launches"][k["name"]]
         k["launches_mesh"] = launches_mesh.get(k["name"], 0)
+        k["launches_dryrun"] = dry["launches"][k["name"]]
         if k["name"] in launches:
             k["launches_streaming"] = launches[k["name"]]
         if k["name"] in ("fused_herm", "batch_solve"):

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.distributed.cache_update import write_rows
+from repro_torch.distributed.collectives import note
 from repro_torch.distributed.sharding import Sharded, as_sharded, groups_over
 from repro_torch.models.layers import upcast
 
@@ -86,6 +87,9 @@ def decode_cells(q, kc, vc, lengths, *, seq_axis, window, kn=None, vn=None):
                 write_rows(vcc, vn.cells[c], pos, ok)
                 ln = ln + 1
             parts.append(_partial_decode(q.cells[c], kcc, vcc, ln, off, window=window))
+        if seq_axis:                       # each cell's partials to the group's others
+            note("all-gather", len(group) * sum(t.numel() * t.element_size() for t in parts[0]),
+                 seq_axis, len(group))
         done: dict = {}        # the group's q is one block: one result a device
         for c in group:
             qq = q.cells[c]

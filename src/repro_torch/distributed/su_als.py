@@ -116,6 +116,7 @@ def su_als_update(
     scheme: str = "two_phase",            # "one_phase" | "two_phase"
     mode: Optional[Mode] = None,
     row_block: int = 0,
+    col_axes: tuple[str, ...] = (),       # the p axes' names, fast -> slow (for counting)
 ) -> list[torch.Tensor]:
     """One SU-ALS half-step for the column group of one data shard.
 
@@ -134,7 +135,8 @@ def su_als_update(
         blocks = [su_als_update(theta_locs, [i[lo:lo + row_block] for i in idx_locs],
                                 [v[lo:lo + row_block] for v in val_locs],
                                 [c[lo:lo + row_block] for c in cnt_locs], lam,
-                                col_sizes=col_sizes, scheme=scheme, mode=mode)
+                                col_sizes=col_sizes, scheme=scheme, mode=mode,
+                                col_axes=col_axes)
                   for lo in range(0, m_loc, row_block)]
         return _per_device([[b[c] for b in blocks] for c in range(len(idx_locs))])
     # (1) local partial Hermitians — eq. (5)-(7)
@@ -151,10 +153,12 @@ def su_als_update(
         # Fig. 5b: scatter over the fast (model) cells of each pod first;
         # only 1/n_fast-sized slices then cross the slow (pod) link
         def reduce(parts):
-            return coll.two_level_reduce_scatter(parts, col_sizes[0])
+            return coll.two_level_reduce_scatter(parts, col_sizes[0], fast_axes=col_axes[:1],
+                                                 slow_axes=col_axes[1:])
     else:
         # Fig. 5a: one reduce-scatter over the joint column cells
-        reduce = coll.reduce_scatter_flat
+        def reduce(parts):
+            return coll.reduce_scatter_flat(parts, axes=col_axes)
     A_r, B_r, c_r = reduce(A), reduce(B), reduce(cnt)
     del A, B, cnt
 
@@ -171,9 +175,9 @@ def su_als_update(
     if two_phase:
         n_fast, n_slow = col_sizes[0], col_sizes[1]
         order = [s * n_fast + f for f in range(n_fast) for s in range(n_slow)]
-        gathered = coll.all_gather([x_slices[c] for c in order], 0)
+        gathered = coll.all_gather([x_slices[c] for c in order], 0, axes=col_axes)
         return [gathered[order.index(c)] for c in range(len(x_slices))]
-    return coll.all_gather(x_slices, 0)
+    return coll.all_gather(x_slices, 0, axes=col_axes)
 
 
 def _per_device(pieces: list[list[torch.Tensor]]) -> list[torch.Tensor]:
@@ -213,7 +217,8 @@ def _update(fixed: RowShards, idx, val, cnt, mesh: Mesh, lam: float, **kw) -> to
             [cell(idx, rows, slice(k * K, (k + 1) * K), dev) for k, dev in enumerate(devs)],
             [cell(val, rows, slice(k * K, (k + 1) * K), dev) for k, dev in enumerate(devs)],
             [cell(cnt, rows, k, dev) for k, dev in enumerate(devs)],
-            lam, col_sizes=col_sizes(mesh), **kw)
+            lam, col_sizes=col_sizes(mesh),
+            col_axes=tuple(a for a in ("model", "pod") if a in mesh.axis_names), **kw)
         out.append(x_loc[0][:m_loc].to(mesh.home))
     return torch.cat(out)
 

@@ -12,8 +12,13 @@ cuMF drives the cards of one machine.  Axis roles:
 Cells may share a card: ``make_mesh((2, 2), ("data", "model"),
 devices=["cuda:0"] * 4)`` runs four cells one after another on one H100,
 which checks the path and counts its launches but measures no scaling.
-The reference's production mesh and TPU constants describe a TPU pod and
-have no counterpart here.
+
+:func:`make_production_mesh` is the deployment the dry-run tools
+(``launch/dryrun.py``, ``benchmarks_torch/roofline.py``) size cells for:
+H100 nodes of 8 cards (the reference's TPU v5e pod keeps its cell counts,
+256 and 512, so every per-cell batch shape stays integral).  Its cells are
+``meta`` devices: shapes and dtypes, no storage, no card.  The constants
+below are that deployment's, the one copy of them in the port.
 """
 from __future__ import annotations
 
@@ -104,3 +109,37 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
         arr[i] = _normalize(d)
     return Mesh(axis_names=axes, shape=dict(zip(axes, shape)),
                 devices=arr.reshape(shape))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The H100 deployment: 32 nodes of 8 cards (data=32 x model=8, 256
+    cells), or two such clusters (pod=2 x data=32 x model=8, 512 cells).
+
+    Axis roles (the reference's ``make_production_mesh``):
+      "model" — TP/EP/SP for LMs, cuMF's p for ALS: the 8 cards of a node,
+                over NVLink (:data:`NVLINK_BW`);
+      "data"  — DP/FSDP for LMs, cuMF's q for ALS: across nodes, one
+                400 Gb/s InfiniBand port a card (:data:`IB_BW`);
+      "pod"   — another DP replica set for LMs, more column shards and the
+                slow phase of the two-phase reduction for ALS: across
+                clusters, over the same ports.
+
+    Every cell is a ``meta`` device: the dry-run needs no card."""
+    shape = (2, 32, 8) if multi_pod else (32, 8)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, devices=["meta"] * math.prod(shape))
+
+
+# The H100 deployment's figures (NVIDIA H100 SXM5 and DGX H100 data sheets,
+# dense rates at 700 W): the per-cell budget and the roofline's peaks and
+# links.  A card run below 700 W is slower than these.
+HBM_BYTES = 80e9              # 80 GB of HBM3 a card
+PEAK_BF16_FLOPS = 989.4e12    # bf16 on the tensor cores, dense
+PEAK_FP32_FLOPS = 67e12       # float32 outside the tensor cores
+HBM_BW = 3.35e12              # bytes/s of HBM3
+NVLINK_BW = 450e9             # bytes/s each way (NVLink 4, 900 GB/s total): "model"
+IB_BW = 50e9                  # bytes/s each way, one ConnectX-7 NDR 400 Gb/s port a card:
+                              # "data" and "pod"
+
+#: each mesh axis's link, bytes/s each way
+AXIS_BW = {"model": NVLINK_BW, "data": IB_BW, "pod": IB_BW}

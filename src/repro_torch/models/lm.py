@@ -50,8 +50,15 @@ def _xent_cells(parts, offsets, labels: torch.Tensor) -> torch.Tensor:
     slices, in slice order, and the slice that holds a label picks it, a
     ``gather`` where the reference contracts with a one-hot (with finite
     logits every other product of that contraction is 0, so the pick is
-    the same).  On ``parts[0]``'s device."""
+    the same).  On ``parts[0]``'s device.  Across slices the max, the sum
+    of exponentials and the pick are each a sum (or max) over the "model"
+    cells, counted as such (``collectives.counting``)."""
+    from repro_torch.distributed.collectives import note
+
     dev = parts[0].device
+    if len(parts) > 1:
+        for _ in range(3):
+            note("all-reduce", labels.numel() * 4, "model", len(parts))
     lf = [L.upcast(t) for t in parts]
     m = lf[0].amax(dim=-1, keepdim=True).detach()
     for t in lf[1:]:
@@ -306,6 +313,7 @@ def compressed_pod_psum(grads, noise, mesh, axis: str = "pod"):
     of global U(0, 1) - 0.5 tensors (one a leaf), or a ``torch.Generator``
     that draws them leaf by leaf in ``transformer.tree_leaves`` order, on
     its device.  Returns a new tree."""
+    from repro_torch.distributed.collectives import note
     from repro_torch.distributed.sharding import Sharded, groups_over
 
     n = mesh.shape[axis]
@@ -328,6 +336,7 @@ def compressed_pod_psum(grads, noise, mesh, axis: str = "pod"):
         for group in groups_over(mesh, axis):
             q = [_round_int8(g.cells[c].float(), scale.to(g.cells[c].device),
                              nz[g.slices(c)].to(g.cells[c].device)) for c in group]
+            note("all-reduce", q[0].numel() * 4, axis, len(group))   # the int32 sum
             dev0 = q[0].device
             qs = q[0].to(torch.int32)
             for t in q[1:]:
@@ -496,16 +505,37 @@ def _replica_sums(params, grads: list) -> list:
     ``Sharded`` a leaf (``transformer.tree_leaves`` order): a block's copies
     on distinct devices each get the sum of their gradients (a fold in
     ascending cell order), as a partitioner sums a replicated weight's
-    gradients over the axes that replicate it."""
-    from repro_torch.distributed.collectives import all_reduce
+    gradients over the axes that replicate it.  ``collectives.counting``
+    counts that sum once a block over the cells that hold it, one card a
+    cell, also where cells share a device and its copies are one tensor."""
+    from repro_torch.distributed.collectives import all_reduce, counting_active
     from repro_torch.distributed.sharding import Sharded
 
     g_of = dict(zip((id(t) for t in _distinct_tensors(params)), grads))
     out = []
     for leaf in T.tree_leaves(params):
-        for ts in leaf.block_tensors().values():
+        blocks = leaf.block_tensors()
+        if counting_active():
+            _note_replica_sums(leaf, blocks)
+        for ts in blocks.values():
             if len(ts) > 1:
-                for t, s in zip(ts, all_reduce([g_of[id(t)] for t in ts])):
+                for t, s in zip(ts, all_reduce([g_of[id(t)] for t in ts], count=False)):
                     g_of[id(t)] = s
         out.append(Sharded(leaf.spec, leaf.shape, leaf.mesh, [g_of[id(t)] for t in leaf.cells]))
     return out
+
+
+def _note_replica_sums(leaf, blocks: dict) -> None:
+    """Count :func:`_replica_sums`' sum of each of ``leaf``'s ``blocks``
+    (``Sharded.block_tensors``) as one float32 all-reduce over the axes
+    that replicate it, among the cells that hold the block."""
+    from repro_torch.distributed.collectives import note
+    from repro_torch.distributed.sharding import entry_axes
+
+    split = {a for e in leaf.spec for a in entry_axes(e)}
+    replicas = tuple(a for a in leaf.mesh.axis_names if a not in split)
+    holders: dict = {}
+    for c in range(leaf.mesh.size):
+        holders[leaf.blocks(c)] = holders.get(leaf.blocks(c), 0) + 1
+    for key, ts in blocks.items():
+        note("all-reduce", ts[0].numel() * 4, replicas, holders[key])

@@ -94,7 +94,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.collectives import (all_gather, all_gather_dims, all_gather_over,
-                                                 all_reduce)
+                                                 all_reduce, note)
 from repro_torch.distributed.cache_update import cache_write, write_rows
 from repro_torch.distributed.flash_decode import combine, decode_cells, flash_decode_update
 from repro_torch.distributed.sharding import Sharded
@@ -217,14 +217,14 @@ class _Cells:
     def model_sum(self, parts: list, dtype) -> list:
         out = [None] * self.n
         for g in self.groups:
-            for c, t in zip(g, all_reduce([parts[c] for c in g], dtype)):
+            for c, t in zip(g, all_reduce([parts[c] for c in g], dtype, axes="model")):
                 out[c] = t
         return out
 
     def model_gather(self, parts: list, dim: int) -> list:
         out = [None] * self.n
         for g in self.groups:
-            for c, t in zip(g, all_gather([parts[c] for c in g], axis=dim)):
+            for c, t in zip(g, all_gather([parts[c] for c in g], axis=dim, axes="model")):
                 out[c] = t
         return out
 
@@ -328,12 +328,7 @@ def forward(cfg: ModelConfig, params, batch: dict, *, mode: str, mesh, cache=Non
     gd = gather_dims(cfg)
     _check_params(params, gd)
     dt = compute_dtype
-    if "embeds" in batch:
-        emb_in = batch["embeds"]
-        B, S = emb_in.shape[:2]
-    else:
-        tokens = batch["tokens"]
-        B, S = tokens.shape
+    B, S = (batch["embeds"] if "embeds" in batch else batch["tokens"]).shape[:2]
     cl = _Cells(cfg, mesh, B, serve_seq_shard)
     n = cl.n
     cache_len = cache_len or S
@@ -343,24 +338,7 @@ def forward(cfg: ModelConfig, params, batch: dict, *, mode: str, mesh, cache=Non
     if mode == "prefill" and cl.seq_axis and slots % cl.tp and "attn" in T.layer_pattern(cfg):
         raise ValueError(f"a cache of {slots} positions does not split over model={cl.tp}")
 
-    # the embedding: vocab-sharded lookups summed over "model" (exact)
-    if "embeds" in batch:
-        x = [emb_in[cl.rows(c)].to(cl.dev[c]).to(dt) for c in range(n)]
-    else:
-        emb = params["embed"]
-        table = all_gather_dims(emb, gd["embed"])
-        tok = [tokens[cl.rows(c)].to(cl.dev[c]).long() for c in range(n)]
-        if emb.spec[0] is None:
-            x = [table[c][tok[c]].to(dt) for c in range(n)]
-        else:
-            parts = []
-            for c in range(n):
-                e = table[c]
-                idx = tok[c] - emb.offset(c, 0)
-                live = (idx >= 0) & (idx < e.shape[0])
-                parts.append(torch.where(live[..., None], e[idx.clamp(0, e.shape[0] - 1)], 0))
-            x = cl.model_sum(parts, dt)
-        del table
+    x = embed_cells(cfg, params, batch, cl, dt)
     if mode == "decode":
         lens = [lengths[cl.rows(c)].to(cl.dev[c]) for c in range(n)]
         positions = [ln[:, None] for ln in lens]
@@ -423,6 +401,28 @@ def forward(cfg: ModelConfig, params, batch: dict, *, mode: str, mesh, cache=Non
     logits = [x[c] @ table[c].to(dt).T for c in range(n)]
     return (cl.sharded((cl.dpb, None, head.spec[0]), (B, s_out, head.shape[0]), logits),
             {"blocks": new_groups})
+
+
+def embed_cells(cfg: ModelConfig, params, batch: dict, cl: _Cells, dt) -> list:
+    """Each cell's rows of the embedded batch [b, S, D] at ``dt``: the
+    ``embeds`` given, or the tokens looked up in the vocab-sharded
+    embedding (its d_model dim gathered first), each cell's slice giving
+    zeros outside it, summed over "model" (exact)."""
+    n = cl.n
+    if "embeds" in batch:
+        return [batch["embeds"][cl.rows(c)].to(cl.dev[c]).to(dt) for c in range(n)]
+    emb = params["embed"]
+    table = all_gather_dims(emb, gather_dims(cfg)["embed"])
+    tok = [batch["tokens"][cl.rows(c)].to(cl.dev[c]).long() for c in range(n)]
+    if emb.spec[0] is None:
+        return [table[c][tok[c]].to(dt) for c in range(n)]
+    parts = []
+    for c in range(n):
+        e = table[c]
+        idx = tok[c] - emb.offset(c, 0)
+        live = (idx >= 0) & (idx < e.shape[0])
+        parts.append(torch.where(live[..., None], e[idx.clamp(0, e.shape[0] - 1)], 0))
+    return cl.model_sum(parts, dt)
 
 
 def head_cells(cfg: ModelConfig, params, mesh) -> tuple[Sharded, list]:
@@ -607,6 +607,9 @@ def _ring_decode(cl: _Cells, lc, q_, k_, v_, lens, wq, g: int, dt) -> list:
                 out[c] = T._decode_ring(q, kk, vv, pos, lens[c])[:, None]
                 continue
             parts.append(_ring_partial(q, kk, vv, pos, lens[c]))
+        if cl.seq_axis:                  # each cell's partials to the group's others
+            note("all-gather", len(grp) * sum(t.numel() * t.element_size() for t in parts[0]),
+                 cl.seq_axis, len(grp))
         done_dev: dict = {}
         for c in grp if cl.seq_axis else ():
             q = q_[c][:, 0]

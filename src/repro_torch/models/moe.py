@@ -177,7 +177,7 @@ def moe_ffn_cells(p_cells, x_cells, e_offsets, cfg: MoEConfig, mesh, dtype):
         parts.append(routed(pc, xc, cfg, e_offsets[c], L.upcast(xc).dtype))
     out = [None] * len(parts)
     for group in shd.groups_over(mesh, "model"):
-        for c, t in zip(group, all_reduce([parts[c] for c in group], dtype)):
+        for c, t in zip(group, all_reduce([parts[c] for c in group], dtype, axes="model")):
             out[c] = t
     return out
 
