@@ -65,7 +65,7 @@ def provenance(quick: bool = False, device: str | None = None) -> dict:
         prov["cuda"] = torch.version.cuda or "none"
         on_card = torch.cuda.is_available()
         backend = (torch.device(device).type if device is not None
-                   else "cuda" if on_card else "cpu")
+                   else "cuda" if on_card else "cpu")  # a tag, not a device  # reprolint: disable=backend-routing
         prov["backend"] = backend
         prov["device_count"] = (torch.cuda.device_count()
                                 if on_card and backend == "cuda" else 0)

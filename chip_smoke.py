@@ -246,6 +246,13 @@ Phases, in order; any failure stops the run with a non-zero exit:
    phi3-mini-3.8b x {train_4k, decode_32k} and the netflix wave at the
    real production shapes, each record's fits, live set, terms and
    dominant term printed, each required to fit.
+20. the port's lint and the kernels' shared memory (``lint_and_smem``):
+   ``repro_torch.analysis``'s seven rules over the repo on this
+   machine's Python, no new finding against
+   ``reprolint_torch_baseline.json``; and ``kernels/budgets.py``'s
+   ``footprint_bytes`` equal, at every f from 1 to each kernel's bound,
+   to the bytes the kernel's launch asks for
+   (``<kernel>_smem_bytes`` of its CUDA source).
 
 The second-to-last line of output is a JSON ``kernels`` record (with each
 kernel's ``launches_mesh``, its launches in phase 11's runs,
@@ -289,7 +296,6 @@ TRAJ_TOL = 3e-3                        # tests/test_convergence.py:80
 SGD_TOL = 1e-5                         # tests/test_sgd.py:97, :285
 STREAM_RMSE_TOL = 1e-4                 # tests/test_outofcore.py:181-182
 BINNED_TOL = 1e-5                      # tests/test_outofcore.py:474-475
-SOLVE_NB = 16                          # kNB of csrc/batch_solve.cu
 SU_TOL = 2e-3                          # tests/test_distributed.py:73-74, :92-93
 MESH_TOL = 1e-4                        # tests/test_distributed.py:110-111,
                                        # tests/test_mesh_streaming.py:189-192, :354-356
@@ -3376,6 +3382,50 @@ def dryrun_on_card(torch, wrappers: dict, dev) -> dict:
             child.wait()
 
 
+def lint_and_smem() -> dict:
+    """Phase 20: the port's lint in process, and each kernel's shared memory
+    against ``kernels/budgets.py``.
+
+    The lint runs all seven rules over their roots under ``ROOT`` with the
+    committed baseline and fails on any new finding (and if it scanned
+    fewer than 100 files: a lint that saw nothing is not clean).  Each
+    budgeted kernel's ``<kernel>_smem_bytes(f)``, the bytes its launch
+    passes to ``<<<...>>>``, must equal ``footprint_bytes(kernel, f=f)``
+    for every f from 1 to its declared bound."""
+    import ctypes
+
+    from repro_torch.analysis import (ALL_RULES, AnalysisConfig, Baseline,
+                                      iter_python_files, run_analysis)
+    from repro_torch.analysis.__main__ import DEFAULT_BASELINE
+    from repro_torch.kernels import budgets, build
+
+    t0 = time.perf_counter()
+    files = {p for r in ALL_RULES for p in iter_python_files(ROOT, r.roots)}
+    new, old = run_analysis(AnalysisConfig(
+        root=ROOT, rules=ALL_RULES, baseline=Baseline.load(ROOT / DEFAULT_BASELINE)))
+    out = {"lint": {"python": sys.version.split()[0], "rules": len(ALL_RULES),
+                    "files": len(files), "new": len(new), "grandfathered": len(old),
+                    "seconds": time.perf_counter() - t0}, "smem": {}}
+    log("phase 20 lint: " + json.dumps(out["lint"]))
+    for f in new:
+        log("  " + f.format())
+    check(len(files) >= 100, f"phase 20: the lint scanned only {len(files)} files")
+    check(not new, f"phase 20: the port's lint has {len(new)} new finding(s)")
+    for name, b in budgets.BUDGETS.items():
+        fn = getattr(build.load(b.library), f"{name}_smem_bytes")
+        fn.argtypes = [ctypes.c_int]
+        fn.restype = ctypes.c_size_t
+        fs = range(1, b.dim_bounds["f"] + 1)
+        launched = [fn(f) for f in fs]
+        bad = [f for f, n in zip(fs, launched) if n != budgets.footprint_bytes(name, f=f)]
+        out["smem"][name] = {"f": [fs[0], fs[-1]], "mismatches": len(bad),
+                             "max_bytes": max(launched), "limit": b.smem_limit}
+        log(f"phase 20 smem {name}: " + json.dumps(out["smem"][name]))
+        check(not bad, f"phase 20: footprint_bytes({name!r}) differs from the "
+                       f"launch's bytes at f in {bad[:8]}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3394,6 +3444,7 @@ def main() -> int:
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import ref as kref
     from repro_torch.kernels.batch_solve import batch_solve_cuda, batch_solve_plain
+    from repro_torch.kernels.budgets import SOLVE_NB
     from repro_torch.kernels.hermitian import (fused_herm_cuda, fused_herm_plain,
                                                herm_hbm_accum_cuda, herm_hbm_accum_plain,
                                                split_slots)
@@ -4995,6 +5046,11 @@ def main() -> int:
     dry = dryrun_on_card(torch, wrappers, dev)
     log(f"phase 19 took {time.perf_counter() - t19:.1f} s ({json.dumps(dry['seconds'])})")
     log("phase 19 dry-run: " + json.dumps({k: dry[k] for k in ("als", "lm", "full")}))
+
+    # -- 20. the port's lint and the kernels' shared memory ------------------------------
+    t20 = time.perf_counter()
+    lint_and_smem()
+    log(f"phase 20 took {time.perf_counter() - t20:.1f} s")
 
     for k in kernels:
         k["launches_mesh_recurrent"] = mrc["launches"][k["name"]]

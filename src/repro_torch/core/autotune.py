@@ -27,8 +27,9 @@ degree-skew quantiles, topology, backend) and stamped with provenance, so
 repeated runs of the same problem class skip the sweep; a shape or skew
 change misses the key and re-tunes.  The schema string is the reference's,
 byte for byte, so each package reads the other's cache; the backend field
-is torch's device type (``"cuda"`` or ``"cpu"``) where the reference has
-JAX's backend name, and provenance records ``torch`` where it records
+is ``"cuda"`` or ``"cpu"`` where the reference has JAX's backend name (an
+analytic sweep's whether the host has a card, a measured sweep's the
+device type it timed), and provenance records ``torch`` where it records
 ``jax``.
 
 Wired through the stack: ``plan_for(auto=True, degrees=...)``,
@@ -46,7 +47,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-from repro_torch.backend import DeviceLike
+from repro_torch.backend import DeviceLike, resolve_device
 from repro_torch.core.partition import GiB, plan_for
 from repro_torch.sparse.padded import bin_caps, round_k
 
@@ -107,15 +108,19 @@ class TuneResult:
 
 
 def _backend_tag() -> str:
-    """torch's device type of the default device: ``"cuda"`` with a card,
-    ``"cpu"`` without."""
+    """Whether the host has a card: ``"cuda"`` with one, ``"cpu"`` without.
+    A tag of the analytic sweeps' keys and of provenance (the reference's
+    ``jax.default_backend()``), not a device: a measured sweep tags its key
+    with the device it timed."""
     import torch
 
-    return "cuda" if torch.cuda.is_available() else "cpu"
+    on_card = torch.cuda.is_available()
+    return "cuda" if on_card else "cpu"  # a tag, not a device  # reprolint: disable=backend-routing
 
 
-def provenance() -> dict:
-    """Cache-entry provenance: commit, time, torch version, backend."""
+def provenance(backend: Optional[str] = None) -> dict:
+    """Cache-entry provenance: commit, time, torch version, backend (by
+    default :func:`_backend_tag`)."""
     import datetime
 
     import torch
@@ -133,7 +138,7 @@ def provenance() -> dict:
         "timestamp": datetime.datetime.now(
             datetime.timezone.utc).isoformat(timespec="seconds"),
         "torch": torch.__version__,
-        "backend": _backend_tag(),
+        "backend": backend or _backend_tag(),
         "schema": TUNECACHE_SCHEMA,
     }
 
@@ -399,14 +404,17 @@ def tune_als_layout(r, q: int, *, p: int = 1, f: int = 16,
     iteration, ties broken toward fewer bins.  Measured mode also times one
     real solve-X wave per candidate on ``device`` (the card unless the
     caller names the CPU) and keeps the argmin of seconds.  The winner is
-    cached under :func:`tune_key`; a hit skips the sweep entirely.
+    cached under :func:`tune_key`; a hit skips the sweep entirely.  A
+    measured winner's key and provenance name the device type it was timed
+    on, so seconds from the CPU never answer a sweep on the card.
     """
     if mode not in ("analytic", "measured"):
         raise ValueError(f"unknown mode {mode!r}")
     cache = _as_cache(cache)
     nnz = int(r.cnt.sum())
+    timed_on = resolve_device(device).type if mode == "measured" else None
     key = tune_key("als", r.m, r.n_cols, nnz, r.cnt, p=p, q=q,
-                   k_multiple=k_multiple)
+                   k_multiple=k_multiple, backend=timed_on)
     hit = _hit(cache, key, "bytes")
     if hit is not None:
         return hit
@@ -442,9 +450,11 @@ def tune_als_layout(r, q: int, *, p: int = 1, f: int = 16,
         unit="seconds" if mode == "measured" else "bytes",
         key=key, cache_hit=False, mode=mode, candidates=candidates)
     if cache is not None:
-        cache.put(key, {"config": result.config.to_obj(),
-                        "score": result.score, "unit": result.unit,
-                        "mode": mode, "candidates": candidates})
+        entry = {"config": result.config.to_obj(), "score": result.score,
+                 "unit": result.unit, "mode": mode, "candidates": candidates}
+        if timed_on is not None:
+            entry["provenance"] = provenance(timed_on)
+        cache.put(key, entry)
     return result
 
 
@@ -458,7 +468,6 @@ def _measure_als_candidate(r, q: int, cfg: LayoutConfig, *, f: int,
     synchronise, so it covers the wave's kernels, not only their launch."""
     import torch
 
-    from repro_torch.backend import resolve_device
     from repro_torch.core import als as als_mod
     from repro_torch.obs.metrics import MetricsRegistry
     from repro_torch.obs.trace import phase

@@ -22,9 +22,19 @@ launched (``smem/<kernel>``):
   vectors of ``f``.
 
 The SGD tile kernel (``csrc/sgd_update.cu``) keeps its rows in registers
-and uses no dynamic shared memory, so it has no entry.  Worst case under
-the declared bound f <= 128: 66048 B for the Hermitians, 43520 B for the
-solve, both far under the limit.
+and uses no dynamic shared memory, so it has no entry: its library is
+declared in :data:`SMEM_FREE`.  Worst case under the declared bound
+f <= 128: 66048 B for the Hermitians, 43520 B for the solve, both far
+under the limit.
+
+Nothing here is read from the CUDA sources at run time, so the constants
+the footprints rest on are copies.  :data:`MIRRORS` declares each copy
+beside the ``constexpr`` it mirrors, and each entry's f bound copies
+``kMaxF`` of its ``source``; the port's
+lint (``python -m repro_torch.analysis``, rule ``smem-budget``) reads the
+sources as text and holds every pair equal.  Each source exports its
+launch's bytes as ``<kernel>_smem_bytes(f)``, which ``chip_smoke.py``
+holds equal to :func:`footprint_bytes` on the card.
 """
 from __future__ import annotations
 
@@ -37,6 +47,20 @@ SMEM_BYTES = 227 * 1024
 HERM_CHUNK = 32          # kChunk, csrc/herm_tile.cuh
 SOLVE_NB = 16            # kNB, csrc/batch_solve.cu
 
+#: Python copies of the CUDA sources' constants: (module in ``kernels/``,
+#: its module-level constant, source in ``kernels/csrc/``, the constexpr)
+MIRRORS = (
+    ("budgets.py", "HERM_CHUNK", "herm_tile.cuh", "kChunk"),
+    ("budgets.py", "SOLVE_NB", "batch_solve.cu", "kNB"),
+    ("hermitian.py", "MAX_F", "herm_tile.cuh", "kMaxF"),
+    ("batch_solve.py", "MAX_F", "batch_solve.cu", "kMaxF"),
+    ("sgd_update.py", "MAX_F", "sgd_update.cu", "kMaxF"),
+)
+
+#: libraries (``kernels/build.load`` names) whose kernels use no dynamic
+#: shared memory, so they need no budget
+SMEM_FREE = ("sgd_update",)
+
 
 @dataclasses.dataclass(frozen=True)
 class KernelBudget:
@@ -44,6 +68,8 @@ class KernelBudget:
 
     smem_limit: int              # bytes the footprint must fit in
     dim_bounds: dict             # dim name -> worst-case value
+    library: str                 # the ``build.load`` name of its source
+    source: str                  # the file under ``csrc/`` whose kMaxF bounds f
     note: str = ""               # where the footprint comes from
 
 
@@ -73,14 +99,17 @@ def footprint_bytes(name: str, *, f: int) -> int:
 
 BUDGETS: dict[str, KernelBudget] = {
     "fused_herm": KernelBudget(
-        smem_limit=SMEM_BYTES, dim_bounds={"f": 128},
+        smem_limit=SMEM_BYTES, dim_bounds={"f": 128}, library="hermitian",
+        source="herm_tile.cuh",
         note="csrc/herm_tile.cuh smem_bytes(f): chunk buffers or staged "
              "A_u/B_u; the split path's reduction stages f*(f+1) floats"),
     "herm_hbm_accum": KernelBudget(
-        smem_limit=SMEM_BYTES, dim_bounds={"f": 128},
+        smem_limit=SMEM_BYTES, dim_bounds={"f": 128}, library="herm_hbm_accum",
+        source="herm_tile.cuh",
         note="the Fig. 7 ablation: herm_tile.cuh's template, same launch"),
     "batch_solve": KernelBudget(
-        smem_limit=SMEM_BYTES, dim_bounds={"f": 128},
+        smem_limit=SMEM_BYTES, dim_bounds={"f": 128}, library="batch_solve",
+        source="batch_solve.cu",
         note="csrc/batch_solve.cu smem_floats(f): transposed panel, packed "
              "triangle with b, three vectors"),
 }

@@ -222,6 +222,10 @@ batch_solve_kernel(const float* __restrict__ A, const float* __restrict__ B,
 
 }  // namespace
 
+// Dynamic shared memory one CTA of the launch asks for at f:
+// kernels/budgets.py footprint_bytes.
+extern "C" size_t batch_solve_smem_bytes(int f) { return smem_floats(f) * sizeof(float); }
+
 // Plain C entry point for ctypes.  Returns a cudaError_t (0 on success).
 extern "C" int batch_solve_launch(const float* A, const float* B, float* X,
                                   int m, int f, int device, void* stream) {

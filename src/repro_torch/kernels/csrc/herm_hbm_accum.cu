@@ -25,6 +25,10 @@
 // of the running sum in the wrapper, which is the cost it exists to show.
 #include "herm_tile.cuh"
 
+// Dynamic shared memory one CTA of the launch asks for at f:
+// kernels/budgets.py footprint_bytes.
+extern "C" size_t herm_hbm_accum_smem_bytes(int f) { return herm::smem_bytes(f); }
+
 // Plain C entry point for ctypes: one bin [k0, k1) of every row into dA
 // [m, f, f] and dB [m, f] (every entry written).  Returns a cudaError_t.
 extern "C" int herm_bin_launch(const float* theta, const int* idx,

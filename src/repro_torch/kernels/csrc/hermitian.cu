@@ -29,6 +29,10 @@ extern "C" long long fused_herm_scratch_floats(int m, int K, int f) {
 // Slots per part of a split row.
 extern "C" int fused_herm_split_slots() { return herm::kSplit; }
 
+// Dynamic shared memory one CTA of the launch asks for at f (the split
+// path's reduction asks for less): kernels/budgets.py footprint_bytes.
+extern "C" size_t fused_herm_smem_bytes(int f) { return herm::smem_bytes(f); }
+
 // Plain C entry point for ctypes: one launch of the Hermitian kernel, and
 // one of the reduction when K > kSplit.  Returns a cudaError_t (0 on
 // success).

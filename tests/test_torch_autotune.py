@@ -136,6 +136,28 @@ def test_measured_mode_scores_seconds(r):
             p_at.tune_als_layout(r, 2, f=SPEC.f, ladder=ladder[:1], mode="measured")
 
 
+def test_measured_key_names_the_device_it_timed(r, tmp_path, monkeypatch):
+    """With a card reported, a measured sweep on the CPU is keyed and
+    stamped ``cpu``, and a measured sweep keyed ``cuda`` misses it (its
+    timing is patched: this host has no card to time).  The analytic key
+    keeps its tag: whether the host has a card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    path = str(tmp_path / "tune_cache.json")
+    ladder = [p_at.LayoutConfig(n_bins=1), p_at.LayoutConfig(n_bins=2)]
+    kw = dict(f=SPEC.f, ladder=ladder, mode="measured", cache=path)
+    on_cpu = p_at.tune_als_layout(r, 2, device="cpu", **kw)
+    assert not on_cpu.cache_hit and on_cpu.key.endswith("|cpu")
+    assert p_at.TuneCache(path).get(on_cpu.key)["provenance"]["backend"] == "cpu"
+    assert p_at.tune_als_layout(r, 2, device="cpu", **kw).cache_hit
+    assert p_at.tune_key("als", r.m, r.n_cols, r.nnz, r.cnt, q=2).endswith("|cuda")
+    monkeypatch.setattr(p_at, "_measure_als_candidate", lambda *a, **k: 1.0)
+    on_card = p_at.tune_als_layout(r, 2, device="cuda", **kw)
+    assert not on_card.cache_hit and on_card.key.endswith("|cuda")
+    assert _drop_backend(on_card.key) == _drop_backend(on_cpu.key)
+    assert p_at.TuneCache(path).get(on_card.key)["provenance"]["backend"] == "cuda"
+    assert len(p_at.TuneCache(path)) == 2
+
+
 # ---------------------------------------------------------------------------
 # TuneCache contract
 # ---------------------------------------------------------------------------

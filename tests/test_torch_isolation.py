@@ -76,16 +76,12 @@ def test_entry_points_import_with_jax_and_repro_blocked():
 
 
 def _imported_roots(path: Path) -> set[str]:
-    roots = set()
-    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
-        if isinstance(node, ast.Import):
-            roots |= {a.name.split(".")[0] for a in node.names}
-        elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            roots.add((node.module or "").split(".")[0])
-        elif isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "import_module":
-            if node.args and isinstance(node.args[0], ast.Constant):
-                roots.add(str(node.args[0].value).split(".")[0])
-    return roots
+    """The top-level packages ``path`` imports, as the port's lint rule
+    backend-routing reads them (lazy imports and ``import_module`` too)."""
+    from repro_torch.analysis.rules.backend_routing import import_sites
+
+    tree = ast.parse(path.read_text(), filename=str(path))
+    return {root for _, root in import_sites(tree)}
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
