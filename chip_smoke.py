@@ -121,7 +121,7 @@ Phases, in order; any failure stops the run with a non-zero exit:
    with an all-ok ``--ledger`` and a valid ``--trace``; at ``--small`` the
    streamed SGD and hybrid, ``--autotune`` twice (a cache miss, then a
    hit), and ``--mesh 2,2 --mesh-device cuda:0`` for ALS and SGD; the
-   script's own launch line must match the wrappers' counts; both ALS
+   script's own launch line must match the registry's counts; both ALS
    kernels at the in-core run's shapes (R, and R^T with its heavy items
    split) and the SGD kernel at the SGD run's grid, from their
    checkpoints, against the plain versions; then ``benchmarks_torch/
@@ -130,7 +130,7 @@ Phases, in order; any failure stops the run with a non-zero exit:
    repro_torch.obs.regress --history`` accepting the history file;
 13. the LM serving path and the embedding factorization:
    ``examples_torch/serve_lm.py`` and ``examples_torch/factorize_embeddings.py``
-   at their defaults (the latter's launch line against the wrappers'
+   at their defaults (the latter's launch line against the registry's
    counts); phi3-mini-3.8b at full width and depth (32 layers, d=3072,
    vocab 32256, 3.82 B parameters, random weights from seed 0): greedy
    prefill/decode consistency in float32 (exact up to 2 layers) and in
@@ -321,6 +321,32 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
+class Launches:
+    """The port's kernel launches since the last :meth:`reset`, by kernel:
+    deltas of the obs registry's counters (``repro_torch.obs.
+    kernel_launches``) of the wrappers' launching calls (``kind``
+    ``"launches"``) or of the CUDA launches they made
+    (``"cuda_launches"``)."""
+
+    NAMES = ("fused_herm", "batch_solve", "sgd_tile", "herm_hbm_accum")
+
+    def __init__(self, kind: str = "launches"):
+        self.kind = kind
+        self.reset()
+
+    def _now(self) -> dict:
+        from repro_torch.obs import kernel_launches
+        counts = kernel_launches(self.kind)
+        return {k: counts.get(k, 0) for k in self.NAMES}
+
+    def reset(self) -> None:
+        self._base = self._now()
+
+    def read(self) -> dict:
+        now = self._now()
+        return {k: now[k] - self._base[k] for k in self.NAMES}
+
+
 def rss_now() -> int:
     """The process's resident set now, in bytes (``VmRSS``), where
     ``ru_maxrss`` gives only its high-water mark."""
@@ -402,7 +428,7 @@ BENCH_ROWS = {
 }
 
 
-def entry_points(torch, wrappers: dict, dev) -> dict:
+def entry_points(torch, launches: Launches, dev) -> dict:
     """Phase 12: the user entry points on the card.
 
     Each script's ``main(argv)`` runs in-process with the working directory
@@ -439,7 +465,7 @@ def entry_points(torch, wrappers: dict, dev) -> dict:
     quick = _load_script("examples_torch/quickstart.py")
     bench = importlib.import_module("benchmarks_torch.run")
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_entry_"))
-    total = dict.fromkeys(wrappers, 0)
+    total = dict.fromkeys(Launches.NAMES, 0)
     runs, err = [], {"herm": 0.0, "solve": 0.0, "sgd": 0.0}
     als_path, sgd_path = ("fused_herm", "batch_solve"), ("sgd_tile",)
     log(f"phase 12: the entry points on the card, in {work}; host RSS {rss_now() / 2**30:.2f} GiB")
@@ -447,8 +473,7 @@ def entry_points(torch, wrappers: dict, dev) -> dict:
     def call(label, fn, argv, path):
         """``fn(argv)`` in ``work``, its output kept; the launches, seconds
         and allocator peak of the call."""
-        for w in wrappers.values():
-            w.launches = 0
+        launches.reset()
         torch.cuda.synchronize()
         resident = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -463,7 +488,7 @@ def entry_points(torch, wrappers: dict, dev) -> dict:
         finally:
             os.chdir(cwd)
         secs = time.perf_counter() - t0
-        counts = {k: w.launches for k, w in wrappers.items()}
+        counts = launches.read()
         peak = torch.cuda.max_memory_allocated() - resident
         log(f"phase 12 {label}: {secs:.2f} s, launches {counts}, allocator peak "
             f"{peak / 2**20:.1f} MiB over {resident / 2**20:.1f} MiB resident, host peak RSS "
@@ -481,7 +506,7 @@ def entry_points(torch, wrappers: dict, dev) -> dict:
         check(len(line) == 1, f"phase 12 {label}: no kernel launch line")
         printed = json.loads(line[0].removeprefix("kernel launches: "))
         check(printed == runs[-1]["launches"],
-              f"phase 12 {label}: the script counted {printed}, the wrappers {runs[-1]['launches']}")
+              f"phase 12 {label}: the script counted {printed}, the registry {runs[-1]['launches']}")
         rmses = [float(v) for v in re.findall(r"test_rmse=([0-9.]+|nan|inf)", out)]
         check(bool(rmses) and all(np.isfinite(rmses)) and rmses[-1] < 1.2,
               f"phase 12 {label}: test RMSE {rmses}")
@@ -891,7 +916,7 @@ def _serve_run(torch, dev, serve_ex, cfg, params, label):
     return st, eng
 
 
-def lm_serving(torch, wrappers: dict, dev) -> dict:
+def lm_serving(torch, launches: Launches, dev) -> dict:
     """Phase 13: the LM serving path and the embedding factorization.
 
     Both LM examples at their defaults; phi3-mini-3.8b at full width and
@@ -923,14 +948,13 @@ def lm_serving(torch, wrappers: dict, dev) -> dict:
     out = {"serve": {}, "max_abs_err": {"fused_herm": 0.0, "batch_solve": 0.0}}
 
     def run_main(label, mod, argv):
-        for w in wrappers.values():
-            w.launches = 0
+        launches.reset()
         tee = _Tee(sys.stdout)
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(tee):
             ret = mod.main(argv)
         torch.cuda.synchronize()
-        counts = {k: w.launches for k, w in wrappers.items()}
+        counts = launches.read()
         log(f"phase 13 {label}: {time.perf_counter() - t0:.2f} s, launches {counts}")
         return tee.text(), ret, counts
 
@@ -944,7 +968,7 @@ def lm_serving(torch, wrappers: dict, dev) -> dict:
     line = [ln for ln in text.splitlines() if ln.startswith("kernel launches: ")]
     check(len(line) == 1 and json.loads(line[0].removeprefix("kernel launches: "))
           == {k: counts[k] for k in fact_ex.KERNELS},
-          f"factorize_embeddings' launch line {line} disagrees with the wrappers' {counts}")
+          f"factorize_embeddings' launch line {line} disagrees with the registry's {counts}")
     for k in fact_ex.KERNELS:
         check(counts[k] > 0, f"factorize_embeddings never launched {k}")
     check(len(rmses) == 6 and all(np.isfinite(rmses)) and rmses[-1] < rmses[0],
@@ -1023,8 +1047,7 @@ def lm_serving(torch, wrappers: dict, dev) -> dict:
 
     # 13d. phi3-mini's full embedding factorized at rank 16, 6 iterations
     V, dmod = emb.shape
-    for w in wrappers.values():
-        w.launches = 0
+    launches.reset()
     tee = _Tee(sys.stdout)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1032,7 +1055,7 @@ def lm_serving(torch, wrappers: dict, dev) -> dict:
         states, rm = fact_ex.factorize(emb, 16, 6, dev)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    out["launches"] = {k: w.launches for k, w in wrappers.items()}
+    out["launches"] = launches.read()
     out["factorize"] = {"seconds": secs, "rmse": rm}
     log(f"phase 13 factorization of phi3-mini's embedding ({V} x {dmod}, "
         f"{V * dmod} ratings, rank 16): 6 iterations in {secs:.2f} s, recon RMSE {rm}; "
@@ -1302,7 +1325,7 @@ def _tree_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in T.tree_leaves(tree))
 
 
-def lm_training(torch, wrappers: dict, dev) -> dict:
+def lm_training(torch, launches: Launches, dev) -> dict:
     """Phase 15: the LM training path (``models/lm.py``'s loss and train
     step, ``training/optimizer.py``, ``data/tokens.py``,
     ``examples_torch/train_lm.py``) on the card.
@@ -1338,8 +1361,7 @@ def lm_training(torch, wrappers: dict, dev) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for w in wrappers.values():
-        w.launches = 0
+    launches.reset()
     out = {}
     t0 = time.perf_counter()
 
@@ -1620,7 +1642,7 @@ def lm_training(torch, wrappers: dict, dev) -> dict:
     out["example"] = {"losses_first_last": [ls[0], ls[-1]], "resumed_at": b["start"]}
     del res, a, b
 
-    out["launches"] = {k: w.launches for k, w in wrappers.items()}
+    out["launches"] = launches.read()
     log(f"phase 15 launches of the four kernels on the training path: {out['launches']}")
     check(not any(out["launches"].values()),
           "phase 15: the training path launched a kernel it should not reach")
@@ -2013,7 +2035,7 @@ def _mesh_vs_single(torch, cfg, params, mesh, dtype, tokens, steps, max_seq, seq
     return out
 
 
-def mesh_serving(torch, wrappers: dict, dev) -> dict:
+def mesh_serving(torch, launches: Launches, dev) -> dict:
     """Phase 16: mesh LM serving on a data=2 x model=2 mesh whose four
     cells share the card (results, launches and the host's cost of four
     cells; not scaling).  The float32 and float64 checks gate; the bf16
@@ -2044,8 +2066,7 @@ def mesh_serving(torch, wrappers: dict, dev) -> dict:
     from repro_torch.models import transformer as T
 
     t_start = time.perf_counter()
-    for w in wrappers.values():
-        w.launches = 0
+    launches.reset()
     serve_ex = _load_script("examples_torch/serve_lm.py")
     mesh = make_mesh((2, 2), ("data", "model"), devices=[f"cuda:{dev.index or 0}"] * 4)
     out = {"mesh": mesh.describe(), "seconds": {}}
@@ -2237,7 +2258,7 @@ def mesh_serving(torch, wrappers: dict, dev) -> dict:
           f"phase 16 olmoe float32 EP mesh disagrees with one device: {ro}")
     out["seconds"]["olmoe"] = time.perf_counter() - t0
 
-    out["launches"] = {k_: w.launches for k_, w in wrappers.items()}
+    out["launches"] = launches.read()
     log(f"phase 16 launches of the four kernels on the mesh serving path: {out['launches']}")
     check(not any(out["launches"].values()),
           "phase 16: the mesh serving path launched a kernel it should not reach")
@@ -2279,7 +2300,7 @@ class _ForwardAt:
         self.T.forward = self.orig
 
 
-def mesh_training(torch, wrappers: dict, dev, single_timed: dict, single_first: dict) -> dict:
+def mesh_training(torch, launches: Launches, dev, single_timed: dict, single_first: dict) -> dict:
     """Phase 17: mesh LM training, the pod sync and the ``mlp_2d`` serving
     layout on a data=2 x model=2 mesh whose four cells share the card
     (results, launches and the host's cost of four cells; not scaling).
@@ -2328,8 +2349,7 @@ def mesh_training(torch, wrappers: dict, dev, single_timed: dict, single_first: 
     from repro_torch.training import optimizer as opt
 
     t_start = time.perf_counter()
-    for w in wrappers.values():
-        w.launches = 0
+    launches.reset()
     cards = [f"cuda:{dev.index or 0}"]
     mesh = make_mesh((2, 2), ("data", "model"), devices=cards * 4)
     out = {"mesh": mesh.describe(), "seconds": {}}
@@ -2748,7 +2768,7 @@ def mesh_training(torch, wrappers: dict, dev, single_timed: dict, single_first: 
           "phase 17: mistral's cell bytes differ from the layout's count")
     out["seconds"]["mistral"] = time.perf_counter() - t0
 
-    out["launches"] = {k_: w.launches for k_, w in wrappers.items()}
+    out["launches"] = launches.read()
     log(f"phase 17 launches of the four kernels on the mesh training path: {out['launches']}")
     check(not any(out["launches"].values()),
           "phase 17: the mesh training path launched a kernel it should not reach")
@@ -2797,7 +2817,7 @@ def _check_bf16_engines(label, flips, dmax, scale, dmax_ulp):
           f"{label}: a flip at a margin of {max(MESH_NEAR_TIE, wit)} or more: {flips}")
 
 
-def mesh_recurrent(torch, wrappers: dict, dev, single_prefill_ms: dict) -> dict:
+def mesh_recurrent(torch, launches: Launches, dev, single_prefill_ms: dict) -> dict:
     """Phase 18: the recurrent blocks and the ring decode on a data=2 x
     model=2 mesh whose four cells share the card (results, launches and
     the host's cost of four cells; not scaling).  For recurrentgemma-2b
@@ -2835,8 +2855,7 @@ def mesh_recurrent(torch, wrappers: dict, dev, single_prefill_ms: dict) -> dict:
     from repro_torch.training import optimizer as opt
 
     t_start = time.perf_counter()
-    for w in wrappers.values():
-        w.launches = 0
+    launches.reset()
     serve_ex = _load_script("examples_torch/serve_lm.py")
     mesh = make_mesh((2, 2), ("data", "model"), devices=[f"cuda:{dev.index or 0}"] * 4)
     out = {"mesh": mesh.describe(), "seconds": {}}
@@ -3033,7 +3052,7 @@ def mesh_recurrent(torch, wrappers: dict, dev, single_prefill_ms: dict) -> dict:
         out["seconds"][arch] = time.perf_counter() - t0
         log(f"{label}: {out['seconds'][arch]:.1f} s")
 
-    out["launches"] = {k_: w.launches for k_, w in wrappers.items()}
+    out["launches"] = launches.read()
     log(f"phase 18 launches of the four kernels on the recurrent mesh path: {out['launches']}")
     check(not any(out["launches"].values()),
           "phase 18: the recurrent mesh path launched a kernel it should not reach")
@@ -3123,7 +3142,7 @@ def _needed_bytes(mem: dict) -> int:
     return mem["argument_bytes"] + mem["output_bytes"] - mem["alias_bytes"]
 
 
-def dryrun_on_card(torch, wrappers: dict, dev) -> dict:
+def dryrun_on_card(torch, launches: Launches, dev) -> dict:
     """Phase 19: the dry-run against the card.  Each check builds a
     production cell with the data axis cut to 1, so that one model group
     of 8 cells shares ``cuda:0``, at the production cell's own per-cell
@@ -3171,8 +3190,7 @@ def dryrun_on_card(torch, wrappers: dict, dev) -> dict:
     log(f"phase 19 starts with {torch.cuda.memory_allocated()} B allocated by earlier phases")
     meta8 = make_mesh((1, 8), ("data", "model"), devices=["meta"] * 8)
     card8 = make_mesh((1, 8), ("data", "model"), devices=[dev] * 8)
-    for w in wrappers.values():
-        w.launches = 0
+    launches.reset()
     # the meta dry-runs of (b) and (c) cost their cells in a process of their
     # own, on other host cores, while this one drives the card
     child = subprocess.Popen(
@@ -3195,7 +3213,7 @@ def dryrun_on_card(torch, wrappers: dict, dev) -> dict:
         args = (theta, idx, val, cnt)
         x = update_x(*args)
         peak = _peak_since(torch, base)
-        launches_wave = {k: w.launches for k, w in wrappers.items()}
+        launches_wave = launches.read()
         mem = cut["memory"]["device"]
         log(f"19a netflix wave on data=1 x model=8 (cuda:0): {rows} rows, K_loc {k_loc}, p {p}, "
             f"f {f}, {nnz} ratings; allocator peak {peak} B between arguments + outputs "
@@ -3256,8 +3274,7 @@ def dryrun_on_card(torch, wrappers: dict, dev) -> dict:
 
         # (b) phi3-mini-3.8b decode_32k cut to data=1 and 4 layers -----------------------------
         t0 = time.perf_counter()
-        for w in wrappers.values():
-            w.launches = 0
+        launches.reset()
         spec = registry.get_arch("phi3-mini-3.8b")
         full = spec.model
         spec = dataclasses.replace(spec, model=dataclasses.replace(full, n_layers=LM_DRYRUN_LAYERS))
@@ -3300,7 +3317,7 @@ def dryrun_on_card(torch, wrappers: dict, dev) -> dict:
             cell.fn(*cell.args)
         runs["prefill"]["flops_cuda_short"] = fc.get_total_flops()
         del cell
-        launches_lm = {k: w.launches for k, w in wrappers.items()}
+        launches_lm = launches.read()
         stdout, stderr = child.communicate(timeout=600)
         check(child.returncode == 0, f"19: the meta dry-run process failed:\n{stderr[-4000:]}")
         meta_recs = json.loads(stdout.strip().splitlines()[-1])
@@ -3373,7 +3390,7 @@ def dryrun_on_card(torch, wrappers: dict, dev) -> dict:
             log(f"19c dry-run {name} on the 32x8 H100 deployment (meta cells): " + json.dumps(r))
             check(r["fits"], f"19c: {name} does not fit its 80 GB a cell")
         out["full"] = full_recs
-        out["launches"] = {k: launches_wave[k] for k in wrappers}
+        out["launches"] = dict(launches_wave)
         out["seconds"]["total"] = time.perf_counter() - t_start
         return out
     finally:            # the child never outlives the phase
@@ -3463,6 +3480,7 @@ def main() -> int:
     from repro_torch.sparse import synth
 
     dev = torch.device("cuda")
+    meter, cuda_meter = Launches(), Launches("cuda_launches")
 
     # -- 1. device -----------------------------------------------------------
     smi = subprocess.run(
@@ -3546,10 +3564,10 @@ def main() -> int:
     cnt = torch.tensor([K, 0, 3 * S, 20 * S + 1, 777, K - 5], dtype=torch.int32).to(dev)
     val = (torch.rand(6, K, generator=gen) * 4 + 1).to(dev) * kref.mask_from_cnt(cnt, K)
     diag = torch.where(cnt > 0, 0.05 * cnt.float(), torch.ones(6, device=dev))
-    calls = fused_herm_cuda.cuda_launches
+    cuda_meter.reset()
     A1, B1 = fused_herm_cuda(theta, idx, val, cnt, diag)
     A2, B2 = fused_herm_cuda(theta, idx, val, cnt, diag)
-    check(fused_herm_cuda.cuda_launches - calls == 4, "a split fused_herm call is not 2 launches")
+    check(cuda_meter.read()["fused_herm"] == 4, "a split fused_herm call is not 2 launches")
     for name, (A0, B0) in (("plain", fused_herm_plain(theta, idx, val, cnt, diag)),
                            ("split-order plain", kref.fused_herm_chunked_plain(
                                theta, idx, val, cnt, diag, S))):
@@ -3604,9 +3622,9 @@ def main() -> int:
         check(K - 1 not in plan.slots.tolist() and bool(((units[:, 2] == P) & (units[:, 3] < 0)).any())
               and bool((splits[:, 3] == P + 1).any()) and bool((splits[:, 3] >= heavy).any()),
               f"phase 3b's plan lacks its cases at f={f}")
-        calls = sgd_tile_cuda.cuda_launches
+        cuda_meter.reset()
         x1, t1 = sgd_tile_cuda(x, th, idx, val, cnt, 0.05, 0.05)
-        check(sgd_tile_cuda.cuda_launches - calls == 1, "an sgd_tile call is not one CUDA launch")
+        check(cuda_meter.read()["sgd_tile"] == 1, "an sgd_tile call is not one CUDA launch")
         x2, t2 = sgd_tile_cuda(x, th, idx, val, cnt, 0.05, 0.05)
         for name, (x0, t0_) in (("plain", sgd_tile_plain(x, th, idx, val, cnt, 0.05, 0.05)),
                                 ("planned plain", kref.sgd_tile_planned_plain(
@@ -3649,10 +3667,10 @@ def main() -> int:
     out = {}
     for mode in ("kernel", "ref"):
         scfg = sgd.SgdConfig(f=8, lam=0.05, mode=mode)
-        calls = sgd_tile_cuda.cuda_launches
+        cuda_meter.reset()
         out[mode] = sgd.sgd_epoch(st, gt, grid, scfg, 0.05, set_order=[2, 0, 3, 1])
         if mode == "kernel":
-            check(sgd_tile_cuda.cuda_launches - calls == grid.g, "a planned set is not one launch")
+            check(cuda_meter.read()["sgd_tile"] == grid.g, "a planned set is not one launch")
     dx = (out["kernel"].x - out["ref"].x).abs().max().item()
     dt = (out["kernel"].theta - out["ref"].theta).abs().max().item()
     log(f"sgd epoch, per-tile-K degree-sorted grid (tile K {sorted(set(grid.tile_K.ravel().tolist()))}"
@@ -3661,19 +3679,14 @@ def main() -> int:
           and torch.allclose(out["kernel"].theta, out["ref"].theta, atol=SGD_TOL, rtol=SGD_TOL),
           "planned SGD epoch on a per-tile-K degree-sorted grid disagrees with plain")
 
-    wrappers = {"fused_herm": fused_herm_cuda, "batch_solve": batch_solve_cuda,
-                "sgd_tile": sgd_tile_cuda, "herm_hbm_accum": herm_hbm_accum_cuda}
-
     def reset_counts():
-        for w in wrappers.values():
-            w.launches = 0
-        fused_herm_cuda.cuda_launches = 0
-        sgd_tile_cuda.cuda_launches = 0
+        meter.reset()
+        cuda_meter.reset()
 
     def read_counts(phase: str, path=("fused_herm", "batch_solve")) -> dict:
-        counts = {name: w.launches for name, w in wrappers.items()}
+        counts, cuda_counts = meter.read(), cuda_meter.read()
         log(f"{phase} launches: {counts}; CUDA launches: fused_herm "
-            f"{fused_herm_cuda.cuda_launches}, sgd_tile {sgd_tile_cuda.cuda_launches}")
+            f"{cuda_counts['fused_herm']}, sgd_tile {cuda_counts['sgd_tile']}")
         for name in path:
             check(counts[name] > 0, f"{phase}: kernel {name} was never launched")
         return counts
@@ -3826,9 +3839,9 @@ def main() -> int:
             idx, val, cnt = triplet(b)
             diag = torch.where(cnt > 0, spec.lam * cnt.float(), torch.ones_like(cnt, dtype=torch.float32))
             nnz, m = b.nnz, b.m
-            launched = fused_herm_cuda.cuda_launches
+            cuda_meter.reset()
             A, B = fused_herm_cuda(fixed, idx, val, cnt, diag)
-            herm_cuda_launches += fused_herm_cuda.cuda_launches - launched
+            herm_cuda_launches += cuda_meter.read()["fused_herm"]
             step = max(1, PLAIN_CHUNK_ELEMS // (b.K * f))
             chunks = [slice(lo, lo + step) for lo in range(0, m, step)]
             for sl in chunks:
@@ -3916,7 +3929,7 @@ def main() -> int:
         marks[-1].record()
         torch.cuda.synchronize()
         walls.append(time.perf_counter())
-        per_epoch.append((torch.cuda.max_memory_allocated(), sgd_tile_cuda.launches))
+        per_epoch.append((torch.cuda.max_memory_allocated(), meter.read()["sgd_tile"]))
         torch.cuda.reset_peak_memory_stats()
 
     reset_counts()
@@ -3925,7 +3938,7 @@ def main() -> int:
                                   callback=on_epoch)
     torch.cuda.synchronize()
     counts["sgd_tile"] = read_counts("quarter-Netflix SGD", ("sgd_tile",))["sgd_tile"]
-    sgd_cuda_launches = sgd_tile_cuda.cuda_launches
+    sgd_cuda_launches = cuda_meter.read()["sgd_tile"]
     epoch_ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(scfg.epochs)]
     eval_ms = cuda_ms(torch, lambda: [float(als.rmse_padded(*sgd.eval_factors(sstate, grid), *t))
                                       for t in (test, train_eval)])
@@ -4983,7 +4996,7 @@ def main() -> int:
     del sfac, ssched
     # -- 12. the entry points on the card ----------------------------------------------
     t12 = time.perf_counter()
-    entry = entry_points(torch, wrappers, dev)
+    entry = entry_points(torch, meter, dev)
     log(f"phase 12 took {time.perf_counter() - t12:.1f} s")
     for k in kernels:
         k["launches_entry_points"] = entry["launches"][k["name"]]
@@ -4995,7 +5008,7 @@ def main() -> int:
 
     # -- 13. the LM serving path and the embedding factorization --------------------
     t13 = time.perf_counter()
-    lmr = lm_serving(torch, wrappers, dev)
+    lmr = lm_serving(torch, meter, dev)
     log(f"phase 13 took {time.perf_counter() - t13:.1f} s")
     for k in kernels:
         k["launches_lm"] = lmr["launches"][k["name"]]
@@ -5014,21 +5027,21 @@ def main() -> int:
 
     # -- 15. LM training --------------------------------------------------------------
     t15 = time.perf_counter()
-    trn = lm_training(torch, wrappers, dev)
+    trn = lm_training(torch, meter, dev)
     log(f"phase 15 took {time.perf_counter() - t15:.1f} s")
     log("phase 15 training: " + json.dumps({k: trn[k] for k in (
         "convergence", "full_2_layers", "timed", "adafactor", "rwkv", "example", "launches")}))
 
     # -- 16. mesh LM serving ------------------------------------------------------------
     t16 = time.perf_counter()
-    msv = mesh_serving(torch, wrappers, dev)
+    msv = mesh_serving(torch, meter, dev)
     log(f"phase 16 took {time.perf_counter() - t16:.1f} s ({json.dumps(msv['seconds'])})")
     log("phase 16 mesh serving: " + json.dumps({k: msv[k] for k in (
         "primitives", "phi3", "qwen3", "olmoe", "launches")}))
 
     # -- 17. mesh LM training, the pod sync and the mlp_2d layout ----------------------
     t17 = time.perf_counter()
-    mtr = mesh_training(torch, wrappers, dev, trn["timed"], trn.pop("first_update"))
+    mtr = mesh_training(torch, meter, dev, trn["timed"], trn.pop("first_update"))
     log(f"phase 17 took {time.perf_counter() - t17:.1f} s ({json.dumps(mtr['seconds'])})")
     log("phase 17 mesh training: " + json.dumps({k: mtr[k] for k in (
         "phi3_2_layers", "phi3_2_layers_falls", "timed", "olmoe", "pod", "mistral",
@@ -5036,14 +5049,14 @@ def main() -> int:
 
     # -- 18. the recurrent blocks and the ring decode on a mesh ------------------------
     t18 = time.perf_counter()
-    mrc = mesh_recurrent(torch, wrappers, dev, fam["prefill_512_ms"])
+    mrc = mesh_recurrent(torch, meter, dev, fam["prefill_512_ms"])
     log(f"phase 18 took {time.perf_counter() - t18:.1f} s ({json.dumps(mrc['seconds'])})")
     log("phase 18 recurrent mesh: " + json.dumps({k: mrc[k] for k in (
         "recurrentgemma-2b", "rwkv6-7b", "launches")}))
 
     # -- 19. the dry-run against the card ---------------------------------------------
     t19 = time.perf_counter()
-    dry = dryrun_on_card(torch, wrappers, dev)
+    dry = dryrun_on_card(torch, meter, dev)
     log(f"phase 19 took {time.perf_counter() - t19:.1f} s ({json.dumps(dry['seconds'])})")
     log("phase 19 dry-run: " + json.dumps({k: dry[k] for k in ("als", "lm", "full")}))
 

@@ -66,21 +66,19 @@ from repro_torch.backend import resolve_device
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import als as als_mod
 from repro_torch.core.partition import plan_for, plan_partitions
-from repro_torch.kernels.batch_solve import batch_solve_cuda
-from repro_torch.kernels.hermitian import fused_herm_cuda, herm_hbm_accum_cuda
-from repro_torch.kernels.sgd_update import sgd_tile_cuda
+from repro_torch.obs import kernel_launches
 from repro_torch.sparse import synth
 
-#: every kernel wrapper of the port, by the name chip_smoke.py reports
-KERNELS = {"fused_herm": fused_herm_cuda, "batch_solve": batch_solve_cuda,
-           "sgd_tile": sgd_tile_cuda, "herm_hbm_accum": herm_hbm_accum_cuda}
+#: every kernel of the port, by the name chip_smoke.py reports
+KERNELS = ("fused_herm", "batch_solve", "sgd_tile", "herm_hbm_accum")
 #: NVIDIA H100 SXM data sheet: 80 GB of HBM3 — the eq. (8) plan's budget
 #: when the run is on the CPU and there is no card to ask
 H100_HBM_BYTES = 80 * 10**9
 
 
 def launch_counts() -> dict:
-    return {name: w.launches for name, w in KERNELS.items()}
+    counts = kernel_launches()
+    return {name: counts.get(name, 0) for name in KERNELS}
 
 
 def _build_mesh(args):
@@ -411,7 +409,11 @@ def main(argv=None):
     ap.add_argument("--trace", default=None, metavar="OUT.json",
                     help="record obs spans for the whole run and write a "
                          "Chrome-trace/Perfetto JSON file (load it at "
-                         "ui.perfetto.dev)")
+                         "ui.perfetto.dev); on the in-core paths each span "
+                         "carries device_ms and its clock: 'device' for the "
+                         "spans timed by CUDA events, 'host' for the rest "
+                         "(step spans, phases, every span on the CPU); "
+                         "--out-of-core keeps the host clock")
     ap.add_argument("--ledger", default=None, metavar="OUT.json",
                     help="with --out-of-core: write the run's plan-vs-"
                          "actual ledger (predicted vs measured peaks, "
@@ -448,7 +450,9 @@ def main(argv=None):
     print(f"partition plan (eq. 8): {plan.describe()}")
 
     from repro_torch.obs import Tracer, set_tracer, write_trace
-    tracer = Tracer() if args.trace else None
+    # the streaming paths keep the host clock: their prefetch copies run on
+    # a side stream, and a timing event beside them is unmeasured there
+    tracer = Tracer(device_clock=not args.out_of_core) if args.trace else None
     # the drivers pick the tracer up via current_tracer; the previous one
     # comes back when the run ends (main may run in-process, repeatedly)
     prev = set_tracer(tracer) if tracer is not None else None

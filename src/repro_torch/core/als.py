@@ -9,6 +9,15 @@ over row blocks so the Hermitians stay bounded at ``batch_rows * f^2``.
 Random initial factors come from a ``torch.Generator``; they differ from
 the reference's ``jax.random`` draw, so parity runs inject the
 reference's initial state through :func:`state_from_numpy`.
+
+:func:`als_train_binned` reports through the current tracer
+(``repro_torch.obs``): per iteration an ``als.iteration`` step span
+holding two ``als.half`` spans, one ``als.bin`` span per non-empty bin and
+q-batch (around the ops' ``kernel.*`` spans) and one ``als.scatter`` per
+bin, then ``als.evaluate`` with ``als.rmse_test`` and ``als.rmse_train``.
+The ``als.bin`` ratings are counted from the host layouts once per run,
+and only while a tracer records, as are all the ``als.bin`` args.  Each host read of a device value in the loop
+counts in the process registry's ``host/syncs``.
 """
 from __future__ import annotations
 
@@ -21,6 +30,10 @@ import torch
 from repro_torch.backend import DeviceLike, Mode, default_mode, resolve_device
 from repro_torch.core.objective import _sq_err_padded, rmse_padded
 from repro_torch.kernels import ops as kops
+from repro_torch.obs.metrics import process_registry
+from repro_torch.obs.trace import NOOP_SPAN, current_tracer
+
+_SYNCS = process_registry().counter("host/syncs")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,25 +82,35 @@ def state_from_numpy(x, theta, iteration: int = 0,
     return AlsState(x=put(x), theta=put(theta), iteration=int(iteration))
 
 
+def _row_batches(m: int, batch_rows: int) -> list[tuple[int, int]]:
+    """The [lo, hi) rows of each q-batch of ``m`` rows: consecutive
+    ``batch_rows``-row blocks where ``batch_rows`` is set below ``m``, else
+    one batch."""
+    step = batch_rows if batch_rows and batch_rows < m else max(m, 1)
+    return [(lo, min(lo + step, m)) for lo in range(0, max(m, 1), step)]
+
+
 def _map_row_blocks(solve_block, arrays, batch_rows: int) -> torch.Tensor:
-    """Run ``solve_block`` on consecutive ``batch_rows``-row blocks of
-    ``arrays`` and concatenate.  The last block may be short: unlike a
-    ``lax.map``, nothing here needs equal block shapes, so no padding."""
-    m = arrays[0].shape[0]
-    return torch.cat([solve_block(tuple(a[lo:lo + batch_rows] for a in arrays))
-                      for lo in range(0, m, batch_rows)])
+    """``solve_block(q, block)`` on each q-batch of ``arrays``
+    (:func:`_row_batches`), concatenated; a single batch is ``arrays``
+    itself.  The last block may be short: unlike a ``lax.map``, nothing
+    here needs equal block shapes, so no padding."""
+    batches = _row_batches(arrays[0].shape[0], batch_rows)
+    if len(batches) == 1:
+        return solve_block(0, arrays)
+    return torch.cat([solve_block(q, tuple(a[lo:hi] for a in arrays))
+                      for q, (lo, hi) in enumerate(batches)])
 
 
-def _update_factor(theta, idx, val, cnt, cfg: AlsConfig) -> torch.Tensor:
-    """Solve every row of one factor given the other side fixed."""
-    def solve(b):
-        return kops.als_update_factor(theta, b[0], b[1], b[2], cfg.lam,
-                                      mode=cfg.mode)
+def _update_factor(theta, idx, val, cnt, cfg: AlsConfig, batch_span=None) -> torch.Tensor:
+    """Solve every row of one factor given the other side fixed.
+    ``batch_span(q, rows)``, where given, is the context each q-batch's
+    solve runs in."""
+    def solve(q, b):
+        with NOOP_SPAN if batch_span is None else batch_span(q, b[0].shape[0]):
+            return kops.als_update_factor(theta, b[0], b[1], b[2], cfg.lam, mode=cfg.mode)
 
-    m = idx.shape[0]
-    if cfg.batch_rows and cfg.batch_rows < m:
-        return _map_row_blocks(solve, (idx, val, cnt), cfg.batch_rows)
-    return solve((idx, val, cnt))
+    return _map_row_blocks(solve, (idx, val, cnt), cfg.batch_rows)
 
 
 def update_rows(fixed, idx, val, cnt, cfg: AlsConfig) -> torch.Tensor:
@@ -120,12 +143,10 @@ def solve_accumulated_(A, B, cnt_total, cfg: AlsConfig) -> torch.Tensor:
     empty = (cnt_total <= 0).to(A.dtype)
     A.diagonal(dim1=-2, dim2=-1).add_(empty[:, None])
 
-    def solve(ab):
+    def solve(q, ab):
         return kops.batch_solve(ab[0], ab[1], mode=cfg.mode)
 
-    if cfg.batch_rows and cfg.batch_rows < A.shape[0]:
-        return _map_row_blocks(solve, (A, B), cfg.batch_rows)
-    return solve((A, B))
+    return _map_row_blocks(solve, (A, B), cfg.batch_rows)
 
 
 def als_iteration(state: AlsState, r, rt, cfg: AlsConfig) -> AlsState:
@@ -184,10 +205,29 @@ def _device_bins(binned, device: DeviceLike):
             for b, rows in zip(binned.bins, binned.rows) if b.m]
 
 
-def _update_factor_bins(fixed, dbins, m: int, cfg: AlsConfig) -> torch.Tensor:
+def _bin_nnz(binned, batch_rows: int) -> list[list[int]]:
+    """Ratings of each non-empty bin's q-batches, from the host layout."""
+    return [[int(b.cnt[lo:hi].sum()) for lo, hi in _row_batches(b.m, batch_rows)]
+            for b in binned.bins if b.m]
+
+
+def _update_factor_bins(fixed, dbins, m: int, cfg: AlsConfig, *, nnz=None) -> torch.Tensor:
+    """:func:`_update_factor` per bin of ``dbins`` (:func:`_device_bins`),
+    each bin's rows scattered back in an ``als.scatter`` span of the
+    current tracer.  While it records, each q-batch runs in an ``als.bin``
+    span; ``nnz`` (:func:`_bin_nnz`) gives their ratings."""
+    tracer = current_tracer()
     out = torch.zeros((m, cfg.f), dtype=torch.float32, device=fixed.device)
-    for (idx, val, cnt), rows in dbins:
-        out[rows] = _update_factor(fixed, idx, val, cnt, cfg)
+    for b, ((idx, val, cnt), rows) in enumerate(dbins):
+        batch_span = None
+        if tracer.enabled:
+            def batch_span(q, n, b=b, K=idx.shape[1]):
+                return tracer.span("als.bin", cat="bin", bin=b, batch=q, rows=n, K=K,
+                                   nnz=nnz[b][q] if nnz else None,
+                                   fixed_rows=fixed.shape[0], f=fixed.shape[1])
+        solved = _update_factor(fixed, idx, val, cnt, cfg, batch_span)
+        with tracer.span("als.scatter", cat="scatter", bin=b):
+            out[rows] = solved
     return out
 
 
@@ -224,6 +264,7 @@ def _rmse_bins(x, theta, dbins) -> float:
         s, k = _sq_err_padded(x[rows], theta, idx, val, cnt)
         sse += float(s)
         nnz += int(k)
+        _SYNCS.inc(2)
     return (sse / max(nnz, 1)) ** 0.5
 
 
@@ -241,20 +282,38 @@ def als_train_binned(
     """In-core training driver over binned layouts: the schedule of
     :func:`als_train` with both half-updates dispatched per bin.  ``rb`` /
     ``rtb`` are BinnedELLs of R (rows=users) and R^T (rows=items); their
-    bins go to the card once, before the first iteration."""
+    bins go to the card once, before the first iteration.  Spans (on the
+    process's current tracer) and counters: the module docstring."""
+    tracer = current_tracer()
     state = als_init(rb.m, rtb.m, cfg) if init is None else init
     r_bins = _device_bins(rb, cfg.device)
     rt_bins = _device_bins(rtb, cfg.device)
+    # the bins' ratings go to the halves only while tracing, so a stand-in
+    # with _update_factor_bins' four positional arguments (the benchmark's
+    # fault checks) still fits an untraced run
+    r_kw = rt_kw = train_args = {}
+    if tracer.enabled:
+        r_kw, rt_kw = ({"nnz": _bin_nnz(rb, cfg.batch_rows)},
+                       {"nnz": _bin_nnz(rtb, cfg.batch_rows)})
+        train_args = {"nnz": rb.nnz}
     history: list[dict] = []
     for it in range(cfg.iters):
-        x = _update_factor_bins(state.theta, r_bins, rb.m, cfg)
-        theta = _update_factor_bins(x, rt_bins, rtb.m, cfg)
-        state = AlsState(x=x, theta=theta, iteration=state.iteration + 1)
-        rec = {"iteration": it + 1}
-        if test is not None:
-            rec["test_rmse"] = float(
-                rmse_padded(state.x, state.theta, test[0], test[1], test[2]))
-        rec["train_rmse"] = _rmse_bins(state.x, state.theta, r_bins)
+        with tracer.step_span("als.iteration", cat="iteration",
+                              iteration=state.iteration + 1):
+            with tracer.span("als.half", cat="half", side="x"):
+                x = _update_factor_bins(state.theta, r_bins, rb.m, cfg, **r_kw)
+            with tracer.span("als.half", cat="half", side="theta"):
+                theta = _update_factor_bins(x, rt_bins, rtb.m, cfg, **rt_kw)
+            state = AlsState(x=x, theta=theta, iteration=state.iteration + 1)
+            rec = {"iteration": it + 1}
+            with tracer.span("als.evaluate", cat="objective"):
+                if test is not None:
+                    with tracer.span("als.rmse_test", cat="objective"):
+                        rec["test_rmse"] = float(
+                            rmse_padded(state.x, state.theta, test[0], test[1], test[2]))
+                        _SYNCS.inc()
+                with tracer.span("als.rmse_train", cat="objective", **train_args):
+                    rec["train_rmse"] = _rmse_bins(state.x, state.theta, r_bins)
         history.append(rec)
         if callback is not None:
             callback(state, rec)

@@ -7,8 +7,9 @@ empty rows already arrive as A = I (``ops.fused_herm``'s
 ``diag_fallback`` and ``core.als.solve_accumulated``'s guard).
 
 ``batch_solve_cuda`` launches the kernel for tensors on the card and runs
-:func:`batch_solve_plain` for tensors on the CPU;
-``batch_solve_cuda.launches`` counts the kernel launches.
+:func:`batch_solve_plain` for tensors on the CPU; its launches are counted
+in the process registry (``kernel/batch_solve/...``; read with
+``repro_torch.obs.kernel_launches``).
 """
 from __future__ import annotations
 
@@ -19,8 +20,10 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import ref as kref
+from repro_torch.obs.metrics import kernel_counters
 
 MAX_F = 128
+_LAUNCHES, _CUDA_LAUNCHES = kernel_counters("batch_solve")
 
 
 @functools.cache
@@ -62,8 +65,6 @@ def batch_solve_cuda(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"batch_solve kernel launch failed: cudaError {rc} "
                            f"(m={m}, f={f})")
-    batch_solve_cuda.launches += 1
+    _LAUNCHES.inc()
+    _CUDA_LAUNCHES.inc()
     return X
-
-
-batch_solve_cuda.launches = 0

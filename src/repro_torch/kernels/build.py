@@ -7,7 +7,9 @@ pybind11 bindings to compile.  Libraries go to ``kernels/_build/``
 (listed in ``.gitignore``), named by a hash of the source, the headers
 and the flags, so an edited source is rebuilt and an unchanged one is
 reused.  :func:`build` compiles several sources in parallel, one ``nvcc``
-each.  A failed build raises; nothing falls back.
+each.  A failed build raises; nothing falls back.  A library's first load
+is a ``kernel.load`` span of the current tracer (args ``library`` and
+``compiled``: whether ``nvcc`` ran).
 
 Nothing here runs at import time.
 """
@@ -20,6 +22,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Iterable
+
+from repro_torch.obs.trace import current_tracer
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -93,8 +97,10 @@ def build(names: Iterable[str] = KERNELS) -> list[str]:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     if name not in _LIBS:
-        build([name])
-        _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+        with current_tracer().span("kernel.load", cat="build", library=name,
+                                   compiled=not library_path(name).is_file()):
+            build([name])
+            _LIBS[name] = ctypes.CDLL(str(library_path(name)))
     return _LIBS[name]
 
 

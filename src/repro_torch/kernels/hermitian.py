@@ -16,9 +16,10 @@ running sum between launches.  It is never on the ALS main path.
 
 What bounds each kernel and how it is laid out is noted in its CUDA
 source.  Each ``*_cuda`` wrapper launches its kernel for tensors on the
-card and runs its ``*_plain`` version for tensors on the CPU; its
-``launches`` attribute counts the wrapper's launching calls, and
-``fused_herm_cuda.cuda_launches`` the CUDA kernels those calls started.
+card and runs its ``*_plain`` version for tensors on the CPU, and counts
+its launching calls and the CUDA kernels they started in the process
+registry (``kernel/fused_herm/...``, ``kernel/herm_hbm_accum/...``; read
+with ``repro_torch.obs.kernel_launches``).
 """
 from __future__ import annotations
 
@@ -29,8 +30,11 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import ref as kref
+from repro_torch.obs.metrics import kernel_counters
 
 MAX_F = 128
+_HERM_LAUNCHES, _HERM_CUDA_LAUNCHES = kernel_counters("fused_herm")
+_HBM_LAUNCHES, _HBM_CUDA_LAUNCHES = kernel_counters("herm_hbm_accum")
 
 
 @functools.cache
@@ -121,13 +125,9 @@ def fused_herm_cuda(
     if rc != 0:
         raise RuntimeError(f"fused_herm kernel launch failed: cudaError {rc} "
                            f"(m={m}, K={K}, f={f}, n={n})")
-    fused_herm_cuda.launches += 1
-    fused_herm_cuda.cuda_launches += 2 if scratch is not None else 1
+    _HERM_LAUNCHES.inc()
+    _HERM_CUDA_LAUNCHES.inc(2 if scratch is not None else 1)
     return A, B
-
-
-fused_herm_cuda.launches = 0
-fused_herm_cuda.cuda_launches = 0
 
 
 def herm_hbm_accum_plain(theta, idx, val, cnt, diag, *, tk: int):
@@ -180,11 +180,9 @@ def herm_hbm_accum_cuda(
         if rc != 0:
             raise RuntimeError(f"herm_hbm_accum kernel launch failed: cudaError {rc} "
                                f"(m={m}, K={K}, f={f}, n={n}, bin [{k0}, {k1}))")
-        herm_hbm_accum_cuda.launches += 1
+        _HBM_LAUNCHES.inc()
+        _HBM_CUDA_LAUNCHES.inc()
         A += dA          # the round trip through device memory per bin
         B += dB
     A.diagonal(dim1=1, dim2=2).add_(diag[:, None])
     return A, B
-
-
-herm_hbm_accum_cuda.launches = 0

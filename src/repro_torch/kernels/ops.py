@@ -9,7 +9,9 @@
 ``mode=None`` takes :func:`repro_torch.backend.default_mode` of the
 tensors' device.  The reference's TPU tile knobs (``tm``/``tk``/``tb``/
 ``f_mult``) have no counterpart: the kernels take f <= 128 and any K, m
-unpadded.
+unpadded.  Each op runs in a ``kernel.fused_herm`` /
+``kernel.batch_solve`` span of the current tracer (args: shapes only), so
+every caller's kernel time shows on a device-clock tracer.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch
 from repro_torch.backend import Mode, default_mode
 from repro_torch.kernels.batch_solve import batch_solve_cuda, batch_solve_plain
 from repro_torch.kernels.hermitian import fused_herm_cuda, fused_herm_plain
+from repro_torch.obs.trace import current_tracer
 
 
 def _mode(mode: Optional[Mode], t: torch.Tensor) -> Mode:
@@ -49,20 +52,25 @@ def fused_herm(
     before the solve set it to False and apply the guard afterwards.
     """
     mode = _mode(mode, theta)
-    diag = lam * cnt.to(torch.float32)
-    if diag_fallback:
-        diag = torch.where(cnt > 0, diag, torch.ones_like(diag))
-    if mode == "kernel":
-        return fused_herm_cuda(theta, idx, val, cnt, diag)
-    return fused_herm_plain(theta, idx, val, cnt, diag)
+    with current_tracer().span("kernel.fused_herm", cat="kernel", rows=idx.shape[0],
+                               K=idx.shape[1], f=theta.shape[1], fixed_rows=theta.shape[0]):
+        diag = lam * cnt.to(torch.float32)
+        if diag_fallback:
+            diag = torch.where(cnt > 0, diag, torch.ones_like(diag))
+        if mode == "kernel":
+            return fused_herm_cuda(theta, idx, val, cnt, diag)
+        return fused_herm_plain(theta, idx, val, cnt, diag)
 
 
 def batch_solve(A: torch.Tensor, B: torch.Tensor, *,
                 mode: Optional[Mode] = None) -> torch.Tensor:
     """x_u = A_u^{-1} B_u (batched Cholesky solve)."""
-    if _mode(mode, A) == "kernel":
-        return batch_solve_cuda(A, B)
-    return batch_solve_plain(A, B)
+    mode = _mode(mode, A)
+    with current_tracer().span("kernel.batch_solve", cat="kernel", rows=A.shape[0],
+                               f=A.shape[1]):
+        if mode == "kernel":
+            return batch_solve_cuda(A, B)
+        return batch_solve_plain(A, B)
 
 
 def als_update_factor(

@@ -25,9 +25,10 @@ PyTorch version for tensors on the CPU:
   place from a prebuilt plan (on the CPU: ``kref.sgd_tile_planned_plain``,
   which mirrors the kernel's order of work).
 
-``sgd_tile_cuda.launches`` counts the calls of either entry that launched
-the kernel, ``sgd_tile_cuda.cuda_launches`` the CUDA launches they made
-(one each).
+The process registry counts the calls of either entry that launched the
+kernel, and the CUDA launches they made (one each): ``kernel/sgd_tile/...``,
+read with ``repro_torch.obs.kernel_launches``.  ``sgd_tile_planned_`` is
+the ``kernel.sgd_tile`` span of whatever driver calls it.
 """
 from __future__ import annotations
 
@@ -40,8 +41,11 @@ import torch
 from repro_torch.backend import Mode, default_mode
 from repro_torch.kernels import build
 from repro_torch.kernels import ref as kref
+from repro_torch.obs.metrics import kernel_counters
+from repro_torch.obs.trace import current_tracer
 
 MAX_F = 128
+_LAUNCHES, _CUDA_LAUNCHES = kernel_counters("sgd_tile")
 #: rows per work unit: a collision group longer than this is cut into parts
 P_SPLIT = 16
 
@@ -230,16 +234,19 @@ def sgd_tile_planned_(
     devices = {t.device for t in (x, theta, plan.rows, plan.units)}
     if len(devices) != 1:
         raise ValueError(f"factors and plan lie on several devices: {devices}")
-    if x.device.type == "cpu":
-        x_new, t_new = kref.sgd_tile_planned_plain(x, theta, plan, lr, lam)
-        x.copy_(x_new)
-        theta.copy_(t_new)
-        return
-    if plan.n_slots == 0:
-        return
-    _launch(x, theta, plan, lr, lam)
-    sgd_tile_cuda.launches += 1
-    sgd_tile_cuda.cuda_launches += 1
+    with current_tracer().span("kernel.sgd_tile", cat="kernel", x_rows=x.shape[0],
+                               theta_rows=theta.shape[0], f=x.shape[1],
+                               entries=plan.rows.shape[0], slots=plan.n_slots):
+        if x.device.type == "cpu":
+            x_new, t_new = kref.sgd_tile_planned_plain(x, theta, plan, lr, lam)
+            x.copy_(x_new)
+            theta.copy_(t_new)
+            return
+        if plan.n_slots == 0:
+            return
+        _launch(x, theta, plan, lr, lam)
+    _LAUNCHES.inc()
+    _CUDA_LAUNCHES.inc()
 
 
 def sgd_tile_cuda(
@@ -259,10 +266,6 @@ def sgd_tile_cuda(
     t_out = theta.contiguous().clone()
     sgd_tile_planned_(x_out, t_out, build_plan(idx, val, cnt), lr, lam)
     return x_out, t_out
-
-
-sgd_tile_cuda.launches = 0
-sgd_tile_cuda.cuda_launches = 0
 
 
 def sgd_block_update(

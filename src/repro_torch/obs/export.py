@@ -5,7 +5,9 @@ Emits the JSON *object* flavor of the Trace Event Format — the shape both
 
     {"traceEvents": [...], "displayTimeUnit": "ms", "otherData": {...}}
 
-Span events are ``ph: "X"`` (complete) with microsecond ``ts``/``dur``;
+Span events are ``ph: "X"`` (complete) with microsecond ``ts``/``dur``
+(a device-clock tracer's spans also carry ``device_ms`` and its
+``clock``, ``"device"`` or ``"host"``, in their args, resolved here);
 each thread that recorded at least one event gets a ``ph: "M"``
 ``thread_name`` metadata record so the prefetch worker shows up as its own
 named track next to the main thread.  Counter samples (``ph: "C"``, e.g.
@@ -38,9 +40,12 @@ def chrome_trace(tracer: Tracer, registry=None,
     for tid, tname in sorted(tracer.thread_names.items()):
         events.append({"name": "thread_name", "ph": "M", "pid": pid,
                        "tid": tid, "args": {"name": tname}})
+    tracer.resolve()
     for ev in sorted(tracer.events, key=lambda e: (e.ts, -e.dur)):
+        args = (ev.args if ev.device_ms is None
+                else dict(ev.args, device_ms=ev.device_ms, clock=ev.clock))
         rec = {"name": ev.name, "cat": ev.cat or "default", "ph": ev.ph,
-               "ts": ev.ts, "pid": pid, "tid": ev.tid, "args": ev.args}
+               "ts": ev.ts, "pid": pid, "tid": ev.tid, "args": args}
         if ev.ph == "X":
             rec["dur"] = ev.dur
         elif ev.ph == "i":

@@ -16,6 +16,21 @@ Naming convention: ``<subsystem>/<what>`` for plain instruments
 (``prefetch/items``), ``phase_seconds/<category>`` for the per-phase time
 accounting the :class:`~repro_torch.obs.trace.phase` helper feeds, and
 ``<category>_seconds`` for the matching latency histograms.
+
+Beside the per-run registries there is one process-wide registry
+(:func:`process_registry`, next to ``trace.current_tracer``) for what
+the program counts wherever it runs:
+
+- ``kernel/<name>/launches``: the calls of a CUDA kernel's wrapper that
+  launched it, and ``kernel/<name>/cuda_launches``: the CUDA launches
+  those calls made (``fused_herm``, ``herm_hbm_accum``, ``batch_solve``,
+  ``sgd_tile``); :func:`kernel_launches` reads them by kernel;
+- ``host/syncs``: the places in the drivers' hot loops where the host
+  reads a device value (an RMSE's ``float()``, ``_rmse_bins``'s per-bin
+  reads) or waits for the stream.
+
+The counters only grow: a reader takes a delta between two reads, as a
+step span (``Tracer.step_span``) does over its own interval.
 """
 from __future__ import annotations
 
@@ -158,3 +173,33 @@ class MetricsRegistry:
                          "sum": h.sum, "count": h.count}
                      for k, h in self._histograms.items()}
         return {"counters": counters, "gauges": gauges, "histograms": hists}
+
+
+_PROCESS = MetricsRegistry()
+
+
+def process_registry() -> MetricsRegistry:
+    """The process-wide registry of the program's kernel launches and host
+    syncs (module docstring)."""
+    return _PROCESS
+
+
+def kernel_counters(name: str) -> tuple[Counter, Counter]:
+    """The ``launches`` and ``cuda_launches`` counters of kernel ``name``
+    in the process registry, for its wrapper to increment."""
+    return (_PROCESS.counter(f"kernel/{name}/launches"),
+            _PROCESS.counter(f"kernel/{name}/cuda_launches"))
+
+
+def kernel_launches(kind: str = "launches") -> dict[str, int]:
+    """``{kernel: count}`` of the process registry's ``kernel/<name>/<kind>``
+    counters (``kind`` is ``"launches"`` or ``"cuda_launches"``); a
+    kernel whose module was never imported is absent."""
+    if kind not in ("launches", "cuda_launches"):
+        raise ValueError(f"unknown launch count {kind!r}")
+    out = {}
+    for key, value in _PROCESS.snapshot()["counters"].items():
+        parts = key.split("/")
+        if len(parts) == 3 and parts[0] == "kernel" and parts[2] == kind:
+            out[parts[1]] = int(value)
+    return out

@@ -16,6 +16,8 @@ the g sets covers every tile exactly once per epoch.
 Each tile is stored as a block-local PaddedELL slice, built through the
 same ``csr_from_coo`` / ``pad_csr_fast`` path as the ALS side, with K
 padded to the grid-wide maximum so every tile presents one shape.
+:func:`block_coo` runs in a ``layout.block_coo`` span of the current
+tracer (host clock), each tile's fill in its ``layout.pad_csr`` span.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from typing import List, Tuple
 
 import numpy as np
 
+from repro_torch.obs.trace import current_tracer
 from repro_torch.sparse.padded import PaddedELL, csr_from_coo, pad_csr_fast
 
 
@@ -165,63 +168,65 @@ def block_coo(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
     slots over the blocking ladder, cached in ``tune_cache`` — and records
     the decision on ``grid.tune``.
     """
-    assert g >= 1
-    if per_tile_k == "auto":
-        from repro_torch.core.autotune import tune_sgd_layout
+    with current_tracer().span("layout.block_coo", cat="layout", rows=m, cols=n,
+                               nnz=len(rows), g=g):
+        assert g >= 1
+        if per_tile_k == "auto":
+            from repro_torch.core.autotune import tune_sgd_layout
 
-        ptr, cc, vv = csr_from_coo(rows, cols, vals, m)
-        ell = pad_csr_fast(ptr, cc, vv, n, k_multiple=k_multiple)
-        res = tune_sgd_layout(ell, g, k_multiple=k_multiple, cache=tune_cache)
-        grid = res.grid
-        if grid is None:       # a cache hit carries the config only
-            grid = block_coo(rows, cols, vals, m, n, g, k_multiple=k_multiple,
-                             per_tile_k=res.config.per_tile_k,
-                             degree_sort=res.config.degree_sort)
-        grid.tune = res.to_obj()
-        return grid
-    user_perm = None
-    if degree_sort:
-        deg = np.bincount(rows, minlength=m)
-        user_perm = np.argsort(-deg, kind="stable").astype(np.int64)
-        inv = np.empty(m, dtype=np.int64)
-        inv[user_perm] = np.arange(m, dtype=np.int64)
-        rows = inv[rows]
-    mb = -(-m // g)
-    nb = -(-n // g)
-    bi = rows // mb            # user block of each nonzero
-    bj = cols // nb            # item block
-    # one pass over the COO: stable-sort by flat block id, then slice
-    order = np.argsort(bi * g + bj, kind="stable")
-    rows, cols, vals = rows[order], cols[order], vals[order]
-    per_block = np.bincount((bi * g + bj)[order], minlength=g * g)
-    ends = np.cumsum(per_block)
-    tiles: list[list[PaddedELL]] = []
-    kmax = k_multiple
-    for i in range(g):
-        row_tiles = []
-        for j in range(g):
-            hi = int(ends[i * g + j])
-            lo = hi - int(per_block[i * g + j])
-            ptr, cc, vv = csr_from_coo(
-                rows[lo:hi] - i * mb, cols[lo:hi] - j * nb, vals[lo:hi], mb)
-            ell = pad_csr_fast(ptr, cc, vv, nb, k_multiple=k_multiple)
-            kmax = max(kmax, ell.K)
-            row_tiles.append(ell)
-        tiles.append(row_tiles)
-    idx = np.zeros((g, g, mb, kmax), dtype=np.int32)
-    val = np.zeros((g, g, mb, kmax), dtype=np.float32)
-    cnt = np.zeros((g, g, mb), dtype=np.int32)
-    tile_K = np.zeros((g, g), dtype=np.int32) if per_tile_k else None
-    for i in range(g):
-        for j in range(g):
-            e = tiles[i][j]
-            idx[i, j, :, :e.K] = e.idx
-            val[i, j, :, :e.K] = e.val
-            cnt[i, j] = e.cnt
-            if tile_K is not None:
-                tile_K[i, j] = min(tile_k_ladder(e.K, k_multiple), kmax)
-    return BlockGrid(idx=idx, val=val, cnt=cnt, g=g, m=m, n=n,
-                     tile_K=tile_K, user_perm=user_perm)
+            ptr, cc, vv = csr_from_coo(rows, cols, vals, m)
+            ell = pad_csr_fast(ptr, cc, vv, n, k_multiple=k_multiple)
+            res = tune_sgd_layout(ell, g, k_multiple=k_multiple, cache=tune_cache)
+            grid = res.grid
+            if grid is None:       # a cache hit carries the config only
+                grid = block_coo(rows, cols, vals, m, n, g, k_multiple=k_multiple,
+                                 per_tile_k=res.config.per_tile_k,
+                                 degree_sort=res.config.degree_sort)
+            grid.tune = res.to_obj()
+            return grid
+        user_perm = None
+        if degree_sort:
+            deg = np.bincount(rows, minlength=m)
+            user_perm = np.argsort(-deg, kind="stable").astype(np.int64)
+            inv = np.empty(m, dtype=np.int64)
+            inv[user_perm] = np.arange(m, dtype=np.int64)
+            rows = inv[rows]
+        mb = -(-m // g)
+        nb = -(-n // g)
+        bi = rows // mb            # user block of each nonzero
+        bj = cols // nb            # item block
+        # one pass over the COO: stable-sort by flat block id, then slice
+        order = np.argsort(bi * g + bj, kind="stable")
+        rows, cols, vals = rows[order], cols[order], vals[order]
+        per_block = np.bincount((bi * g + bj)[order], minlength=g * g)
+        ends = np.cumsum(per_block)
+        tiles: list[list[PaddedELL]] = []
+        kmax = k_multiple
+        for i in range(g):
+            row_tiles = []
+            for j in range(g):
+                hi = int(ends[i * g + j])
+                lo = hi - int(per_block[i * g + j])
+                ptr, cc, vv = csr_from_coo(
+                    rows[lo:hi] - i * mb, cols[lo:hi] - j * nb, vals[lo:hi], mb)
+                ell = pad_csr_fast(ptr, cc, vv, nb, k_multiple=k_multiple)
+                kmax = max(kmax, ell.K)
+                row_tiles.append(ell)
+            tiles.append(row_tiles)
+        idx = np.zeros((g, g, mb, kmax), dtype=np.int32)
+        val = np.zeros((g, g, mb, kmax), dtype=np.float32)
+        cnt = np.zeros((g, g, mb), dtype=np.int32)
+        tile_K = np.zeros((g, g), dtype=np.int32) if per_tile_k else None
+        for i in range(g):
+            for j in range(g):
+                e = tiles[i][j]
+                idx[i, j, :, :e.K] = e.idx
+                val[i, j, :, :e.K] = e.val
+                cnt[i, j] = e.cnt
+                if tile_K is not None:
+                    tile_K[i, j] = min(tile_k_ladder(e.K, k_multiple), kmax)
+        return BlockGrid(idx=idx, val=val, cnt=cnt, g=g, m=m, n=n,
+                         tile_K=tile_K, user_perm=user_perm)
 
 
 def block_ell(ell: PaddedELL, g: int, k_multiple: int = 8,

@@ -20,6 +20,12 @@ The reference draws its initial state and set orders from ``jax.random``,
 which torch cannot reproduce: parity runs inject the reference's state
 through :func:`sgd_state_from_numpy` and its set orders through
 ``sgd_epoch(set_order=)``.
+
+:func:`sgd_train` reports through its tracer (``repro_torch.obs``): per
+epoch an ``sgd.epoch`` step span holding one ``sgd.set`` span per diagonal
+set (around the sweep's ``kernel.sgd_tile`` span in ``"kernel"`` mode) and
+``sgd.evaluate`` with its RMSE spans.  The ``sgd.set`` args are counted
+from the host grid once per run, and only while the tracer records.
 """
 from __future__ import annotations
 
@@ -33,9 +39,12 @@ from repro_torch.backend import DeviceLike, Mode, default_mode, resolve_device
 from repro_torch.core.objective import rmse_padded
 from repro_torch.kernels.sgd_update import (P_SPLIT, SlotPlan, build_plan,
                                             sgd_block_update, sgd_tile_planned_)
-from repro_torch.obs.trace import current_tracer, phase
+from repro_torch.obs.metrics import process_registry
+from repro_torch.obs.trace import NULL_TRACER, current_tracer, phase
 from repro_torch.sgd.blocking import BlockGrid
 from repro_torch.training.optimizer import lr_schedule
+
+_SYNCS = process_registry().counter("host/syncs")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,21 +161,22 @@ def _set_k_groups(grid: BlockGrid, s: int):
 
 
 def _grouped_epoch(xb, tb, idx, val, cnt, set_order, lr, grid: BlockGrid,
-                   cfg: SgdConfig):
+                   cfg: SgdConfig, tracer=NULL_TRACER, set_args=None):
     """Host loop over sets, one stacked call per same-K group, each sliced
     to that group's K (the trailing slot columns of a tile are all padding,
     so the slice drops only no-op slots).  Returns fresh blocks; the
     inputs are not modified."""
     xb, tb = xb.clone(), tb.clone()
     for s in [int(v) for v in set_order]:
-        for k_t, ii, jj in _set_k_groups(grid, s):
-            ii = torch.from_numpy(ii).to(xb.device)
-            jj = torch.from_numpy(jj).to(xb.device)
-            x_new, t_new = sgd_tiles_update(
-                xb[ii], tb[jj], idx[ii, jj, :, :k_t], val[ii, jj, :, :k_t],
-                cnt[ii, jj], lr, cfg.lam)
-            xb[ii] = x_new
-            tb[jj] = t_new
+        with tracer.span("sgd.set", cat="set", **(set_args[s] if set_args else {})):
+            for k_t, ii, jj in _set_k_groups(grid, s):
+                ii = torch.from_numpy(ii).to(xb.device)
+                jj = torch.from_numpy(jj).to(xb.device)
+                x_new, t_new = sgd_tiles_update(
+                    xb[ii], tb[jj], idx[ii, jj, :, :k_t], val[ii, jj, :, :k_t],
+                    cnt[ii, jj], lr, cfg.lam)
+                xb[ii] = x_new
+                tb[jj] = t_new
     return xb, tb
 
 
@@ -187,8 +197,25 @@ def build_set_plans(gt, grid: BlockGrid, *, p: int = P_SPLIT) -> list[SlotPlan]:
     return plans
 
 
+def _set_args(grid: BlockGrid, cfg: SgdConfig, plan) -> list[dict]:
+    """``sgd.set`` span args of each diagonal set, counted on the host from
+    the grid: its live ratings, the slot steps its sweep takes (the plan's
+    slots, or the sum of its K groups' K in ``"ref"`` mode), the factor
+    rows and the grid's shape."""
+    g, ar = grid.g, np.arange(grid.g)
+    out = []
+    for s in range(g):
+        slots = (plan[s].n_slots if plan is not None
+                 else sum(k for k, _, _ in _set_k_groups(grid, s)))
+        out.append(dict(set=s, live=int(grid.cnt[ar, (ar + s) % g].sum()), slots=slots,
+                        x_rows=g * grid.mb, theta_rows=g * grid.nb, g=g, mb=grid.mb,
+                        f=cfg.f))
+    return out
+
+
 def sgd_epoch(state: SgdState, gt, grid: BlockGrid, cfg: SgdConfig,
-              lr: float, *, set_order=None, plan=None) -> SgdState:
+              lr: float, *, set_order=None, plan=None, tracer=NULL_TRACER,
+              set_args=None) -> SgdState:
     """One full epoch: g diagonal sets x g independent tiles per set.
 
     ``grid`` supplies the block shape — ``nb`` in particular must NOT be
@@ -198,7 +225,9 @@ def sgd_epoch(state: SgdState, gt, grid: BlockGrid, cfg: SgdConfig,
     permutation (:func:`epoch_set_order`, or the reference's as numpy);
     None keeps the canonical 0..g-1 order.  ``plan`` is the list of
     :func:`build_set_plans` for ``"kernel"`` mode, built here when None.
-    The caller's ``state`` is never modified.
+    Each set runs in an ``sgd.set`` span of ``tracer``, with the
+    :func:`_set_args` ``set_args`` where given.  The caller's ``state`` is
+    never modified.
     """
     idx, val, cnt = gt
     g, mb, nb, f = grid.g, grid.mb, grid.nb, cfg.f
@@ -210,14 +239,15 @@ def sgd_epoch(state: SgdState, gt, grid: BlockGrid, cfg: SgdConfig,
     order = np.asarray(range(g) if set_order is None else set_order).tolist()
     if cfg.mode == "ref":
         xb, tb = _grouped_epoch(state.x.reshape(g, mb, f), state.theta.reshape(g, nb, f),
-                                idx, val, cnt, order, lr, grid, cfg)
+                                idx, val, cnt, order, lr, grid, cfg, tracer, set_args)
         return SgdState(x=xb.reshape(g * mb, f), theta=tb.reshape(g * nb, f),
                         epoch=state.epoch + 1)
     if plan is None:
         plan = build_set_plans(gt, grid)
     x, theta = state.x.clone(), state.theta.clone()
     for s in order:
-        sgd_tile_planned_(x, theta, plan[int(s)], lr, cfg.lam)
+        with tracer.span("sgd.set", cat="set", **(set_args[int(s)] if set_args else {})):
+            sgd_tile_planned_(x, theta, plan[int(s)], lr, cfg.lam)
     return SgdState(x=x, theta=theta, epoch=state.epoch + 1)
 
 
@@ -241,17 +271,17 @@ def sgd_train(
     driver restores the latest epoch on entry and saves after every epoch
     (async, paper §4.4 protocol), so a killed run resumes bit-exact.
 
-    Each epoch runs in an ``epoch`` obs phase (plus a ``checkpoint`` phase
-    per commit) feeding ``registry`` when given; ``tracer`` defaults to
-    the process-wide tracer and its spans are no-ops unless one is
-    enabled.  On the card, when a registry is given or the tracer is
-    enabled, the epoch phase ends with a stream synchronise (the
-    reference's ``block_until_ready``), so it times the epoch's kernels
-    and not only their launch; with neither, the epochs queue on the
-    card unsynchronised.
+    Each epoch's sets and evaluation run in an ``sgd.epoch`` step span of
+    ``tracer`` (the module docstring), which defaults to the process-wide
+    tracer and is a no-op unless one is enabled; a device-clock tracer
+    times the epoch with CUDA events, with no synchronise.  The sets also
+    run in an ``epoch`` obs phase (plus a ``checkpoint`` phase per commit)
+    feeding ``registry`` when given: on the card that phase ends with a
+    stream synchronise (the reference's ``block_until_ready``), so its
+    host clock times the epoch's kernels and not only their launch.
+    Without a registry the epochs queue on the card unsynchronised.
     """
     tracer = tracer if tracer is not None else current_tracer()
-    timed = registry is not None or tracer.enabled
     state = sgd_init(grid, cfg) if init_state is None else init_state
     start = int(state.epoch)
     mgr = None
@@ -265,21 +295,29 @@ def sgd_train(
             start = ck_epoch
     gt = grid_triplet(grid, state.x.device)
     plan = build_set_plans(gt, grid) if cfg.mode == "kernel" else None
+    set_args = _set_args(grid, cfg, plan) if tracer.enabled else None
     history: list[dict] = []
     for ep in range(start, cfg.epochs):
         lr = epoch_lr(cfg, ep)
-        with phase("sgd.epoch", cat="epoch", tracer=tracer,
-                   registry=registry, epoch=ep + 1, lr=lr):
-            state = sgd_epoch(state, gt, grid, cfg, lr,
-                              set_order=epoch_set_order(cfg.seed, ep, grid.g), plan=plan)
-            if timed and state.x.is_cuda:
-                torch.cuda.current_stream(state.x.device).synchronize()
-        rec = {"epoch": ep + 1, "lr": lr}
-        x, th = eval_factors(state, grid)
-        if test is not None:
-            rec["test_rmse"] = float(rmse_padded(x, th, *test))
-        if train_eval is not None:
-            rec["train_rmse"] = float(rmse_padded(x, th, *train_eval))
+        with tracer.step_span("sgd.epoch", cat="epoch", epoch=ep + 1, lr=lr):
+            with phase("sgd.epoch", cat="epoch", registry=registry):
+                state = sgd_epoch(state, gt, grid, cfg, lr,
+                                  set_order=epoch_set_order(cfg.seed, ep, grid.g), plan=plan,
+                                  tracer=tracer, set_args=set_args)
+                if registry is not None and state.x.is_cuda:
+                    torch.cuda.current_stream(state.x.device).synchronize()
+                    _SYNCS.inc()
+            rec = {"epoch": ep + 1, "lr": lr}
+            with tracer.span("sgd.evaluate", cat="objective"):
+                x, th = eval_factors(state, grid)
+                if test is not None:
+                    with tracer.span("sgd.rmse_test", cat="objective"):
+                        rec["test_rmse"] = float(rmse_padded(x, th, *test))
+                        _SYNCS.inc()
+                if train_eval is not None:
+                    with tracer.span("sgd.rmse_train", cat="objective"):
+                        rec["train_rmse"] = float(rmse_padded(x, th, *train_eval))
+                        _SYNCS.inc()
         history.append(rec)
         if mgr is not None:
             # host copies, not the live factors: the manager commits on a

@@ -15,6 +15,10 @@ into ~log-spaced degree bins (cuMF's degree binning) so each bin pads to
 its own, much tighter K.  Because padding slots are exact zeros,
 re-padding a row at any K >= its degree changes no f32 sum: binned and
 unbinned layouts are numerically identical.
+
+:func:`bin_rows` and :func:`pad_csr_fast` run in ``layout.*`` spans of the
+current tracer (host clock: the work is synchronous numpy), one per call
+and one per bin fill.
 """
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ import dataclasses
 from typing import Tuple
 
 import numpy as np
+
+from repro_torch.obs.trace import current_tracer
 
 
 @dataclasses.dataclass
@@ -113,21 +119,22 @@ def pad_csr_fast(ptr: np.ndarray, cols: np.ndarray, vals: np.ndarray,
     """Vectorized :func:`pad_csr` (no python loop) for large matrices;
     bit-identical to it on every input, ``k_cap`` truncation included."""
     m = ptr.shape[0] - 1
-    full = (ptr[1:] - ptr[:-1]).astype(np.int32)
-    cnt = np.minimum(full, np.int32(k_cap)) if k_cap is not None else full
-    kmax = int(cnt.max()) if m else 0
-    K = max(k_multiple, -(-kmax // k_multiple) * k_multiple)
-    # position of each nonzero within its row
-    pos = np.arange(len(cols), dtype=np.int64) - np.repeat(ptr[:-1], full)
-    rows = np.repeat(np.arange(m, dtype=np.int64), full)
-    if k_cap is not None:
-        keep = pos < cnt[rows]         # drop each row's truncated tail
-        pos, rows = pos[keep], rows[keep]
-        cols, vals = cols[keep], vals[keep]
-    idx = np.zeros((m, K), dtype=np.int32)
-    val = np.zeros((m, K), dtype=np.float32)
-    idx[rows, pos] = cols
-    val[rows, pos] = vals
+    with current_tracer().span("layout.pad_csr", cat="layout", rows=m, nnz=len(cols)):
+        full = (ptr[1:] - ptr[:-1]).astype(np.int32)
+        cnt = np.minimum(full, np.int32(k_cap)) if k_cap is not None else full
+        kmax = int(cnt.max()) if m else 0
+        K = max(k_multiple, -(-kmax // k_multiple) * k_multiple)
+        # position of each nonzero within its row
+        pos = np.arange(len(cols), dtype=np.int64) - np.repeat(ptr[:-1], full)
+        rows = np.repeat(np.arange(m, dtype=np.int64), full)
+        if k_cap is not None:
+            keep = pos < cnt[rows]         # drop each row's truncated tail
+            pos, rows = pos[keep], rows[keep]
+            cols, vals = cols[keep], vals[keep]
+        idx = np.zeros((m, K), dtype=np.int32)
+        val = np.zeros((m, K), dtype=np.float32)
+        idx[rows, pos] = cols
+        val[rows, pos] = vals
     return PaddedELL(idx=idx, val=val, cnt=cnt, n_cols=n_cols)
 
 
@@ -323,32 +330,38 @@ def bin_rows(ptr: np.ndarray, cols: np.ndarray, vals: np.ndarray,
     n_cols)``.  Empty bins are dropped; at least one bin always remains.
     """
     m = ptr.shape[0] - 1
-    cnt = (ptr[1:] - ptr[:-1]).astype(np.int64)
-    kmax = int(cnt.max()) if m else 0
-    caps = bin_caps(kmax, n_bins, k_multiple)
-    # row -> first cap covering its rounded degree (cnt=0 rows -> bin 0)
-    assign = np.searchsorted(np.asarray(caps, dtype=np.int64),
-                             np.maximum(cnt, 1), side="left")
-    bins: list[PaddedELL] = []
-    rows: list[np.ndarray] = []
-    for b in range(len(caps)):
-        rb = np.nonzero(assign == b)[0].astype(np.int64)
-        if rb.size == 0:
-            continue
-        cnt_b = cnt[rb]
-        # gather this bin's CSR entries (rows keep original relative order)
-        off = np.cumsum(cnt_b) - cnt_b
-        take = np.repeat(ptr[:-1][rb] - off, cnt_b) \
-            + np.arange(int(cnt_b.sum()), dtype=np.int64)
-        ptr_b = np.zeros(rb.size + 1, dtype=np.int64)
-        np.cumsum(cnt_b, out=ptr_b[1:])
-        bins.append(pad_csr_fast(ptr_b, cols[take], vals[take], n_cols,
-                                 k_multiple=k_multiple))
-        rows.append(rb)
-    if not bins:       # m == 0: keep one (empty) bin so consumers never
-        bins.append(pad_csr_fast(ptr, cols, vals, n_cols,   # see zero bins
-                                 k_multiple=k_multiple))
-        rows.append(np.zeros(0, dtype=np.int64))
+    tracer = current_tracer()
+    with tracer.span("layout.bin_rows", cat="layout", rows=m, nnz=len(cols), n_bins=n_bins):
+        cnt = (ptr[1:] - ptr[:-1]).astype(np.int64)
+        kmax = int(cnt.max()) if m else 0
+        caps = bin_caps(kmax, n_bins, k_multiple)
+        # row -> first cap covering its rounded degree (cnt=0 rows -> bin 0)
+        assign = np.searchsorted(np.asarray(caps, dtype=np.int64),
+                                 np.maximum(cnt, 1), side="left")
+        bins: list[PaddedELL] = []
+        rows: list[np.ndarray] = []
+        for b in range(len(caps)):
+            rb = np.nonzero(assign == b)[0].astype(np.int64)
+            if rb.size == 0:
+                continue
+            cnt_b = cnt[rb]
+            nnz_b = int(cnt_b.sum())
+            with tracer.span("layout.bin", cat="layout", bin=len(bins), rows=rb.size,
+                             K=round_k(int(cnt_b.max()), k_multiple) if tracer.enabled else None,
+                             nnz=nnz_b):
+                # gather this bin's CSR entries (rows keep original relative order)
+                off = np.cumsum(cnt_b) - cnt_b
+                take = np.repeat(ptr[:-1][rb] - off, cnt_b) \
+                    + np.arange(nnz_b, dtype=np.int64)
+                ptr_b = np.zeros(rb.size + 1, dtype=np.int64)
+                np.cumsum(cnt_b, out=ptr_b[1:])
+                bins.append(pad_csr_fast(ptr_b, cols[take], vals[take], n_cols,
+                                         k_multiple=k_multiple))
+            rows.append(rb)
+        if not bins:       # m == 0: keep one (empty) bin so consumers never
+            bins.append(pad_csr_fast(ptr, cols, vals, n_cols,   # see zero bins
+                                     k_multiple=k_multiple))
+            rows.append(np.zeros(0, dtype=np.int64))
     return BinnedELL(bins=tuple(bins), rows=tuple(rows),
                      n_cols=n_cols, m=m)
 

@@ -136,17 +136,17 @@ def test_kernel_modules_do_not_build_on_import():
         "            + hermitian._bin_launcher.cache_info().currsize\n"
         "            + batch_solve._launcher.cache_info().currsize\n"
         "            + sgd_update._launcher.cache_info().currsize,\n"
-        "  'launches': hermitian.fused_herm_cuda.launches\n"
-        "              + hermitian.herm_hbm_accum_cuda.launches\n"
-        "              + batch_solve.batch_solve_cuda.launches\n"
-        "              + sgd_update.sgd_tile_cuda.launches}))\n")
+        "  'launches': sum(obs.kernel_launches().values())\n"
+        "              + sum(obs.kernel_launches('cuda_launches').values()),\n"
+        "  'counted': sorted(obs.kernel_launches())}))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"), PATH="/nonexistent")
     env.pop("CUDA_HOME", None)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == \
-        {"loaded": [], "cached": 0, "launches": 0}
+        {"loaded": [], "cached": 0, "launches": 0,
+         "counted": ["batch_solve", "fused_herm", "herm_hbm_accum", "sgd_tile"]}
 
 
 def test_build_names_sources_that_exist():

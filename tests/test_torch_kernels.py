@@ -21,6 +21,7 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import hermitian as port_herm  # noqa: E402
 from repro_torch.kernels import ops as port_ops  # noqa: E402
 from repro_torch.kernels import ref as port_ref  # noqa: E402
+from repro_torch.obs import kernel_launches  # noqa: E402
 
 
 def _problem(seed, m, n, K, f, frac_empty=0.2):
@@ -121,15 +122,13 @@ def test_als_update_factor_matches_reference_kernel(seed, m, K, f):
 def test_wrappers_on_cpu_run_plain_and_count_no_launch():
     theta, idx, val, cnt = _problem(2, 16, 40, 16, 8)
     diag = np.ones(16, np.float32)
-    before = (port_herm.fused_herm_cuda.launches, port_herm.fused_herm_cuda.cuda_launches,
-              port_solve.batch_solve_cuda.launches)
+    before = (kernel_launches(), kernel_launches("cuda_launches"))
     A, B = port_herm.fused_herm_cuda(*_t(theta, idx, val, cnt, diag))
     A0, B0 = port_herm.fused_herm_plain(*_t(theta, idx, val, cnt, diag))
     assert torch.equal(A, A0) and torch.equal(B, B0)
     x = port_solve.batch_solve_cuda(A, B)
     assert torch.equal(x, port_solve.batch_solve_plain(A, B))
-    assert (port_herm.fused_herm_cuda.launches, port_herm.fused_herm_cuda.cuda_launches,
-            port_solve.batch_solve_cuda.launches) == before
+    assert (kernel_launches(), kernel_launches("cuda_launches")) == before
     assert "hermitian" not in build.loaded()
     assert "batch_solve" not in build.loaded()
 
@@ -173,9 +172,9 @@ def test_herm_hbm_accum_matches_reference_ablation(m, n, K, f, seed):
                                 jnp.pad(mask, pad + ((0, 0),)), jnp.pad(jnp.asarray(diag), pad),
                                 tm=8, tk=8, interpret=True)
     for tk in (8, 10):
-        launches = port_herm.herm_hbm_accum_cuda.launches
+        launches = kernel_launches()["herm_hbm_accum"]
         A1, B1 = port_herm.herm_hbm_accum_cuda(*_t(theta, idx, val, cnt, diag), tk=tk)
-        assert port_herm.herm_hbm_accum_cuda.launches == launches
+        assert kernel_launches()["herm_hbm_accum"] == launches
         np.testing.assert_allclose(A1.numpy(), np.asarray(A0)[:m], atol=2e-4, rtol=1e-4)
         np.testing.assert_allclose(B1.numpy(), np.asarray(B0)[:m], atol=2e-4, rtol=1e-4)
         A2, B2 = port_herm.fused_herm_plain(*_t(theta, idx, val, cnt, diag))

@@ -97,9 +97,14 @@ def test_null_tracer_is_a_constant_noop(mod):
     assert mod.set_tracer(tr) is mod.NULL_TRACER
     assert mod.current_tracer() is tr
 
-    @mod.traced(cat="solve")
-    def f(v):
-        return v + 1
+    if mod is r_obs:
+        @mod.traced(cat="solve")
+        def f(v):
+            return v + 1
+    else:
+        def f(v):
+            with mod.current_tracer().span("f", cat="solve"):
+                return v + 1
 
     assert f(1) == 2
     assert [e.cat for e in tr.spans()] == ["solve"]
@@ -256,7 +261,9 @@ def test_report_and_regress_run_as_modules(tmp_path):
 def test_sgd_train_spans_match_reference(tmp_path):
     """A 2-epoch in-core SGD run with a checkpoint directory records the
     reference's spans (one ``epoch`` and one ``checkpoint`` per epoch) and
-    phase categories."""
+    phase categories.  The port's epoch span is a step span (its
+    ``counters`` arg is the port's own) and holds the port's finer spans:
+    one ``set`` per diagonal set and the evaluation."""
     import jax.numpy as jnp
 
     from repro.sgd import blocking as r_blocking
@@ -284,8 +291,16 @@ def test_sgd_train_spans_match_reference(tmp_path):
             init = train.sgd_state_from_numpy(x0, t0, device="cpu")
         train.sgd_train(grid, cfg, init_state=init, ckpt_dir=str(tmp_path / name),
                         tracer=tr, registry=reg)
-        runs[name] = ([(e.name, e.cat, sorted(e.args)) for e in tr.spans()],
+        spans = tr.spans()
+        runs[name] = ([(e.name, e.cat, sorted(set(e.args) - {"counters"})) for e in spans
+                       if e.cat in ("epoch", "checkpoint")],
                       sorted(reg.phase_seconds()))
+        if name == "port":
+            epochs = [e.id for e in spans if e.name == "sgd.epoch"]
+            assert all("counters" in e.args for e in spans if e.name == "sgd.epoch")
+            assert [e.parent for e in spans if e.name == "sgd.set"] == [epochs[0]] * 4 + [epochs[1]] * 4
+            assert [e.parent for e in spans if e.name == "sgd.evaluate"] == epochs
+            assert all(e.parent is None for e in spans if e.cat == "checkpoint")
     assert runs["port"] == runs["ref"]
     assert runs["port"][1] == ["checkpoint", "epoch"]
     assert [s[0] for s in runs["port"][0]] == ["sgd.epoch", "checkpoint.commit"] * 2

@@ -23,6 +23,7 @@ from repro.training.optimizer import lr_schedule as ref_lr_schedule  # noqa: E40
 from repro_torch.core import als as port_als  # noqa: E402
 from repro_torch.kernels import ref as port_kref  # noqa: E402
 from repro_torch.kernels import sgd_update as port_sgd  # noqa: E402
+from repro_torch.obs import kernel_launches  # noqa: E402
 from repro_torch.sgd import blocking as port_blocking  # noqa: E402
 from repro_torch.sgd import hybrid as port_hybrid  # noqa: E402
 from repro_torch.sgd import train as port_train  # noqa: E402
@@ -270,10 +271,10 @@ def test_sgd_tile_planned_rejects_bad_inputs():
 def test_sgd_tile_is_pure_and_rejects_bad_inputs():
     x, th, idx, val, cnt = (torch.from_numpy(a) for a in _tile(1, 8, 6, 4, 5))
     before = [t.clone() for t in (x, th)]
-    launches = port_sgd.sgd_tile_cuda.launches
+    launches = kernel_launches()["sgd_tile"]
     port_sgd.sgd_tile_cuda(x, th, idx, val, cnt, 0.1, 0.05)
     assert torch.equal(x, before[0]) and torch.equal(th, before[1])
-    assert port_sgd.sgd_tile_cuda.launches == launches      # CPU: plain version
+    assert kernel_launches()["sgd_tile"] == launches      # CPU: plain version
     with pytest.raises(ValueError, match="int32"):
         port_sgd.sgd_tile_cuda(x, th, idx.long(), val, cnt, 0.1, 0.05)
     with pytest.raises(ValueError, match="outside"):
