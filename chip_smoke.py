@@ -7,14 +7,16 @@ check it.
 Phases, in order; any failure stops the run with a non-zero exit:
 
 1. device: print the card's name and power limit; fp32 matmuls without TF32;
-2. build all four CUDA kernels from ``src/repro_torch/kernels/csrc`` (in
+2. build all five CUDA kernels from ``src/repro_torch/kernels/csrc`` (in
    parallel) and print what ptxas said;
 3. the ALS kernels against their plain PyTorch versions at f in
    {8, 33, 100, 128}, with ragged and empty rows and ``diag_fallback`` on
    and off, two calls of each bit-equal; heavy rows (K >= 20 split
    parts, ragged cnt, cnt on a part boundary) against the plain version
    and its split order of work; a near-singular system where the
-   reference's clamps decide the solution;
+   reference's clamps decide the solution; the objective's squared error
+   at the same f (rows of three work items) against its plain version,
+   two CUDA launches a call, two calls bit-equal;
 3b. the SGD tile sweep and the Fig. 7 Hermitian against their plain
    versions at f in {8, 33, 100, 128} (empty rows, ragged cnt, a forced
    heavy item collision split into parts, units of exactly P and P + 1
@@ -32,9 +34,12 @@ Phases, in order; any failure stops the run with a non-zero exit:
    kernel mode, judged by tests/test_convergence.py's relative criteria;
 6. the ALS path: ``als_train_binned`` on quarter-Netflix at full width
    (m=120047, n=17770, nnz=24.75M, f=100, lambda=0.05, 8 degree bins),
-   3 iterations, with each kernel's launch count read around the run;
+   3 iterations, with each kernel's launch count read around the run
+   (``fused_herm``, ``batch_solve`` and the RMSE's ``sq_err`` required);
 7. the ALS kernels timed at that path's shapes (every bin of both sides
-   of one iteration) against their plain versions and a library call;
+   of one iteration) against their plain versions and a library call, and
+   the squared error of the in-loop evaluation (every bin of R into one
+   total, the test split) against its plain version, beside its bound;
 8. the SGD path: ``sgd_train`` (3 epochs, cold start, kernel mode) on
    phase 6's ratings blocked g=4, with its calls and CUDA launches read
    around the run; the slot plans' build time, bytes and shape; each
@@ -168,7 +173,7 @@ Phases, in order; any failure stops the run with a non-zero exit:
    bytes, then one Adafactor step; rwkv6-7b at full width, 2 layers: the
    chunked WKV scan against one loop, the same loss at a lower peak;
    ``examples_torch/train_lm.py`` at its defaults and with ``--ckpt`` and a
-   resume.  The training path launches none of the four kernels, and the
+   resume.  The training path launches none of the five kernels, and the
    phase checks that it did not: the reference trains these models with
    ``jax.grad`` outside any Pallas kernel.
 16. mesh LM serving (``mesh_serving``) on ``make_mesh((2, 2), ("data",
@@ -191,7 +196,7 @@ Phases, in order; any failure stops the run with a non-zero exit:
    capacity that drops nothing (2e-4), each data shard's own capacity, the
    engines.  The reference computes this path with ``einsum``s under
    ``shard_map``, outside any Pallas kernel: the phase checks that it
-   launches none of the four kernels.
+   launches none of the five kernels.
 17. mesh LM training, the pod sync and the ``mlp_2d`` serving layout
    (``mesh_training``) on the same data=2 x model=2 mesh: phi3-mini-3.8b at
    full width, 2 layers, B=4, S=1024, the state laid out by the train
@@ -210,7 +215,7 @@ Phases, in order; any failure stops the run with a non-zero exit:
    model), the cache's sequence over model): float32 at 2 layers against
    one device (1e-4) and the bf16 engines at 4 of 88 layers (phase 16's
    gates, each cell's bytes, ms per decode step).  The path launches none of
-   the four kernels, as the reference's ``jax.grad`` and partitioner reach
+   the five kernels, as the reference's ``jax.grad`` and partitioner reach
    none.
 18. the recurrent blocks and the ring decode on a mesh (``mesh_recurrent``)
    on the same data=2 x model=2 mesh: recurrentgemma-2b (RG-LRU and window
@@ -294,6 +299,7 @@ HERM_ATOL, HERM_RTOL = 2e-4, 1e-4      # tests/test_kernels.py:44
 SOLVE_TOL = 5e-4                       # tests/test_kernels.py:77
 TRAJ_TOL = 3e-3                        # tests/test_convergence.py:80
 SGD_TOL = 1e-5                         # tests/test_sgd.py:97, :285
+SQ_ERR_RTOL = 1e-6                     # tests/test_torch_cuda_kernels.py SSE_RTOL
 STREAM_RMSE_TOL = 1e-4                 # tests/test_outofcore.py:181-182
 BINNED_TOL = 1e-5                      # tests/test_outofcore.py:474-475
 SU_TOL = 2e-3                          # tests/test_distributed.py:73-74, :92-93
@@ -328,7 +334,7 @@ class Launches:
     ``"launches"``) or of the CUDA launches they made
     (``"cuda_launches"``)."""
 
-    NAMES = ("fused_herm", "batch_solve", "sgd_tile", "herm_hbm_accum")
+    NAMES = ("fused_herm", "batch_solve", "sgd_tile", "herm_hbm_accum", "sq_err")
 
     def __init__(self, kind: str = "launches"):
         self.kind = kind
@@ -1643,7 +1649,7 @@ def lm_training(torch, launches: Launches, dev) -> dict:
     del res, a, b
 
     out["launches"] = launches.read()
-    log(f"phase 15 launches of the four kernels on the training path: {out['launches']}")
+    log(f"phase 15 launches of the five kernels on the training path: {out['launches']}")
     check(not any(out["launches"].values()),
           "phase 15: the training path launched a kernel it should not reach")
     out["seconds"] = time.perf_counter() - t0
@@ -2052,7 +2058,7 @@ def mesh_serving(torch, launches: Launches, dev) -> dict:
     steps, bf16 at 8 layers and float32 at 2; (d) olmoe-1b-7b at full
     width, 32 experts a cell: float32 at 2 layers at a capacity that drops
     nothing, the engine at its own capacity.  The phase launches none of
-    the four kernels.
+    the five kernels.
     """
     import dataclasses
 
@@ -2259,7 +2265,7 @@ def mesh_serving(torch, launches: Launches, dev) -> dict:
     out["seconds"]["olmoe"] = time.perf_counter() - t0
 
     out["launches"] = launches.read()
-    log(f"phase 16 launches of the four kernels on the mesh serving path: {out['launches']}")
+    log(f"phase 16 launches of the five kernels on the mesh serving path: {out['launches']}")
     check(not any(out["launches"].values()),
           "phase 16: the mesh serving path launched a kernel it should not reach")
     out["seconds"]["total"] = time.perf_counter() - t_start
@@ -2331,7 +2337,7 @@ def mesh_training(torch, launches: Launches, dev, single_timed: dict, single_fir
     cell's bytes against the layout's count, ms per decode step.  The
     reference trains and serves these with ``jax.grad`` and ``einsum``s
     under its partitioner, outside any Pallas kernel: the phase checks that
-    it launches none of the four kernels.
+    it launches none of the five kernels.
     """
     import dataclasses
 
@@ -2769,7 +2775,7 @@ def mesh_training(torch, launches: Launches, dev, single_timed: dict, single_fir
     out["seconds"]["mistral"] = time.perf_counter() - t0
 
     out["launches"] = launches.read()
-    log(f"phase 17 launches of the four kernels on the mesh training path: {out['launches']}")
+    log(f"phase 17 launches of the five kernels on the mesh training path: {out['launches']}")
     check(not any(out["launches"].values()),
           "phase 17: the mesh training path launched a kernel it should not reach")
     out["seconds"]["total"] = time.perf_counter() - t_start
@@ -2840,7 +2846,7 @@ def mesh_recurrent(torch, launches: Launches, dev, single_prefill_ms: dict) -> d
     within ``F64_TOL``); (e) float64 at the deepest depth that fits within
     ``F64_TOL`` or that witness's bound.  The reference computes these blocks with ``einsum``s and
     scans under its partitioner, outside any Pallas kernel: the phase
-    launches none of the four kernels.
+    launches none of the five kernels.
     """
     import dataclasses
 
@@ -3053,7 +3059,7 @@ def mesh_recurrent(torch, launches: Launches, dev, single_prefill_ms: dict) -> d
         log(f"{label}: {out['seconds'][arch]:.1f} s")
 
     out["launches"] = launches.read()
-    log(f"phase 18 launches of the four kernels on the recurrent mesh path: {out['launches']}")
+    log(f"phase 18 launches of the five kernels on the recurrent mesh path: {out['launches']}")
     check(not any(out["launches"].values()),
           "phase 18: the recurrent mesh path launched a kernel it should not reach")
     out["seconds"]["total"] = time.perf_counter() - t_start
@@ -3166,7 +3172,7 @@ def dryrun_on_card(torch, launches: Launches, dev) -> dict:
     (the live set may exceed the card); the dry-run's units x 8 cells equal
     to ``FlopCounterMode`` over a whole decode step and a whole prefill of
     ``LM_FLOPS_SEQ`` tokens on the CUDA cells, and the decode's count the
-    same on the meta cells; none of the four kernels launched;
+    same on the meta cells; none of the five kernels launched;
     (c) ``run_cell`` and ``roofline_cell`` on meta for phi3-mini-3.8b x
     {train_4k, decode_32k} and ``run_als_cell("netflix")`` at the real
     production shapes, each record's fits, live set, terms and dominant
@@ -3467,6 +3473,7 @@ def main() -> int:
                                                split_slots)
     from repro_torch.kernels import sgd_update
     from repro_torch.kernels.sgd_update import sgd_tile_cuda, sgd_tile_plain
+    from repro_torch.kernels.sq_err import sq_err_cuda, sq_err_plain
     from repro_torch.obs import Tracer
     from repro_torch.obs.ledger import validate_ledger
     from repro_torch.obs.report import render_ledger
@@ -3553,6 +3560,23 @@ def main() -> int:
             f" plain {cuda_ms(torch, lambda: batch_solve_plain(A, B)):.3f}"
             f" cholesky_ex+cholesky_solve {cuda_ms(torch, lambda: torch.cholesky_solve(B[..., None], torch.linalg.cholesky_ex(A)[0])):.3f}")
         del g, gm, A2, B2
+        # the objective's squared error: rows of K = 3000 slots span three
+        # of the kernel's work items
+        x = torch.randn(m, f, generator=torch.Generator().manual_seed(f)).to(dev)
+        cuda_meter.reset()
+        s1 = sq_err_cuda(x, theta, idx, val, cnt)
+        s2 = sq_err_cuda(x, theta, idx, val, cnt)
+        check(cuda_meter.read()["sq_err"] == 4, "an sq_err call is not 2 CUDA launches")
+        s0 = sq_err_plain(x, theta, idx, val, cnt)
+        rel = abs(s1[0].item() - s0[0].item()) / s0[0].item()
+        log(f"sq_err f={f}: sse {s1[0].item():.10g} (plain {s0[0].item():.10g}, rel. {rel:.3g}), "
+            f"nnz {s1[1].item():.0f}; two calls bit-equal; ms: kernel "
+            f"{cuda_ms(torch, lambda: sq_err_cuda(x, theta, idx, val, cnt)):.3f} plain "
+            f"{cuda_ms(torch, lambda: sq_err_plain(x, theta, idx, val, cnt)):.3f}")
+        check(s1[1].item() == s0[1].item() and rel <= SQ_ERR_RTOL,
+              f"sq_err disagrees with its plain version at f={f}")
+        check(torch.equal(s1, s2), f"two sq_err calls on the same inputs differ at f={f}")
+        del x
 
     # heavy rows: K >= 20 parts of the split, cnt ragged, on a part boundary,
     # 0; factors and ratings as ALS has them (the tolerances are absolute
@@ -3802,7 +3826,7 @@ def main() -> int:
     marks[0].record()
     state, hist = als.als_train_binned(rb, rtb, cfg, test=test, callback=on_iteration)
     torch.cuda.synchronize()
-    counts = read_counts("quarter-Netflix")
+    counts = read_counts("quarter-Netflix", ("fused_herm", "batch_solve", "sq_err"))
     incore_hist = hist
     peak = torch.cuda.max_memory_allocated()
     iter_ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(cfg.iters)]
@@ -3907,6 +3931,41 @@ def main() -> int:
          "ms": tot["solve_ms"], "plain_ms": tot["solve_plain_ms"], "bound_ms": sb,
          "bound_by": sb_by, "library_ms": tot["solve_lib_ms"]},
     ]
+
+    # the in-loop evaluation's squared error: every bin of R through its row
+    # map into one total (the train RMSE), then the test split
+    r_bins = als._device_bins(rb, dev)
+
+    def evaluate(fn):
+        acc = torch.zeros(2, dtype=torch.float64, device=dev)
+        for (idx, val, cnt), rows in r_bins:
+            fn(state.x, state.theta, idx, val, cnt, rows, acc)
+        return acc, fn(state.x, state.theta, *test)
+
+    (tr1, te1), (tr0, te0) = evaluate(sq_err_cuda), evaluate(sq_err_plain)
+    sq_rel = max(abs(a[0].item() - b[0].item()) / b[0].item() for a, b in ((tr1, tr0), (te1, te0)))
+    sq_abs = max(abs((a[0] / a[1]).sqrt().item() - (b[0] / b[1]).sqrt().item())
+                 for a, b in ((tr1, tr0), (te1, te0)))
+    check(tr1[1].item() == tr0[1].item() == rb.nnz and te1[1].item() == te0[1].item() == rte.nnz
+          and sq_rel <= SQ_ERR_RTOL,
+          f"sq_err disagrees with its plain version at quarter-Netflix: sse rel. {sq_rel}")
+    sq_ms = cuda_ms(torch, lambda: evaluate(sq_err_cuda))
+    sq_plain_ms = cuda_ms(torch, lambda: evaluate(sq_err_plain))
+    ev_nnz, ev_rows = rb.nnz + rte.nnz, rb.m + rte.m
+    qb, qb_by = bound(ev_nnz * (2 * f + 3),
+                      ev_nnz * 8 + ev_rows * (4 + 4 * f) + rb.m * 8 + state.theta.numel() * 4)
+    log(f"per iteration at quarter-Netflix: sq_err {sq_ms:.3f} ms ({len(r_bins)} bins of R "
+        f"and the test split, {ev_nnz} ratings; plain {sq_plain_ms:.3f}, bound {qb:.3f} by "
+        f"{qb_by}; the theta rows its ratings fetch, {ev_nnz * 4 * f / 1e9:.2f} GB, take "
+        f"{ev_nnz * 4 * f / PEAK_HBM_BYTES * 1e3:.3f} ms at the HBM rate); sse rel. "
+        f"{sq_rel:.3g}, RMSE |d| {sq_abs:.3g}")
+    kernels.append(
+        {"name": "sq_err", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/sq_err.cu",
+         "replaces": None, "launches": counts["sq_err"], "max_abs_err": sq_abs,
+         "ms": sq_ms, "plain_ms": sq_plain_ms, "bound_ms": qb, "bound_by": qb_by,
+         "library_ms": None})
+    del r_bins, tr1, te1, tr0, te0
 
     # -- 8. SGD path: quarter-Netflix blocked g=4, 3 epochs --------------------------
     t0 = time.perf_counter()

@@ -70,7 +70,7 @@ from repro_torch.obs import kernel_launches
 from repro_torch.sparse import synth
 
 #: every kernel of the port, by the name chip_smoke.py reports
-KERNELS = ("fused_herm", "batch_solve", "sgd_tile", "herm_hbm_accum")
+KERNELS = ("fused_herm", "batch_solve", "sgd_tile", "herm_hbm_accum", "sq_err")
 #: NVIDIA H100 SXM data sheet: 80 GB of HBM3 — the eq. (8) plan's budget
 #: when the run is on the CPU and there is no card to ask
 H100_HBM_BYTES = 80 * 10**9

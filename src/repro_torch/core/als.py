@@ -14,7 +14,8 @@ reference's initial state through :func:`state_from_numpy`.
 (``repro_torch.obs``): per iteration an ``als.iteration`` step span
 holding two ``als.half`` spans, one ``als.bin`` span per non-empty bin and
 q-batch (around the ops' ``kernel.*`` spans) and one ``als.scatter`` per
-bin, then ``als.evaluate`` with ``als.rmse_test`` and ``als.rmse_train``.
+bin, then ``als.evaluate`` with ``als.rmse_test`` and ``als.rmse_train``
+(one ``kernel.sq_err`` span per test call and per bin of R).
 The ``als.bin`` ratings are counted from the host layouts once per run,
 and only while a tracer records, as are all the ``als.bin`` args.  Each host read of a device value in the loop
 counts in the process registry's ``host/syncs``.
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.backend import DeviceLike, Mode, default_mode, resolve_device
-from repro_torch.core.objective import _sq_err_padded, rmse_padded
+from repro_torch.core.objective import rmse_padded
 from repro_torch.kernels import ops as kops
 from repro_torch.obs.metrics import process_registry
 from repro_torch.obs.trace import NOOP_SPAN, current_tracer
@@ -259,13 +260,15 @@ def partial_herm_binned(x_batch, binned_loc, cfg: AlsConfig):
 
 
 def _rmse_bins(x, theta, dbins) -> float:
-    sse, nnz = 0.0, 0
+    """RMSE over the nonzeros of ``dbins`` (:func:`_device_bins`): every
+    bin's squared error added into one float64 accumulator on the device
+    (``kops.sq_err`` through the bin's row map), which the host reads once."""
+    acc = torch.zeros(2, dtype=torch.float64, device=x.device)
     for (idx, val, cnt), rows in dbins:
-        s, k = _sq_err_padded(x[rows], theta, idx, val, cnt)
-        sse += float(s)
-        nnz += int(k)
-        _SYNCS.inc(2)
-    return (sse / max(nnz, 1)) ** 0.5
+        kops.sq_err(x, theta, idx, val, cnt, rows=rows, out=acc)
+    sse, nnz = acc.tolist()
+    _SYNCS.inc()
+    return (sse / max(nnz, 1.0)) ** 0.5
 
 
 def rmse_binned(x, theta, binned) -> float:

@@ -1,17 +1,15 @@
 """Objective and evaluation metrics for ALS MF (paper eq. (1)).
 
-The squared error gathers ``theta[idx]`` ([m, K, f]); it is taken in row
-chunks of at most :data:`GATHER_ELEMS` gathered floats so evaluating a
-full-size matrix never holds the whole gather on the card.
+The squared error is :func:`repro_torch.kernels.ops.sq_err`: the kernel
+``csrc/sq_err.cu`` for tensors on the card (one pass over the ratings,
+nothing gathered into device memory), its plain version (the chunked
+``theta[idx]`` gather and einsum) for tensors on the CPU.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ref as kref
-
-#: gathered floats per chunk of the squared error (256 MB in fp32)
-GATHER_ELEMS = 1 << 26
+from repro_torch.kernels import ops as kops
 
 
 def _sq_err_padded(x, theta, idx, val, cnt):
@@ -22,23 +20,14 @@ def _sq_err_padded(x, theta, idx, val, cnt):
     theta [n, f]  column factors
     idx   [m, K], val [m, K], cnt [m]
     """
-    m, K = idx.shape
-    step = max(1, GATHER_ELEMS // max(K * theta.shape[1], 1))
-    sse = torch.zeros((), dtype=x.dtype, device=x.device)
-    for lo in range(0, m, step):
-        hi = min(lo + step, m)
-        g = theta[idx[lo:hi].long()]                    # [rows, K, f]
-        pred = torch.einsum("uf,ukf->uk", x[lo:hi], g)
-        mask = kref.mask_from_cnt(cnt[lo:hi], K, x.dtype)
-        err = (val[lo:hi] - pred) * mask
-        sse = sse + torch.sum(err * err)
-    return sse, torch.sum(cnt)
+    sse, n = kops.sq_err(x, theta, idx, val, cnt)
+    return sse.to(x.dtype), n.to(torch.int64)
 
 
 def rmse_padded(x, theta, idx, val, cnt) -> torch.Tensor:
     """Root mean squared error over the nonzeros of (idx, val, cnt)."""
-    sse, n = _sq_err_padded(x, theta, idx, val, cnt)
-    return torch.sqrt(sse / torch.clamp(n, min=1))
+    sse, n = kops.sq_err(x, theta, idx, val, cnt)
+    return torch.sqrt(sse / torch.clamp(n, min=1)).to(x.dtype)
 
 
 def objective_j(x, theta, idx, val, cnt_rows, cnt_cols, lam) -> torch.Tensor:

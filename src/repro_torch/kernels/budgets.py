@@ -21,9 +21,10 @@ launched (``smem/<kernel>``):
   floats), the packed lower triangle of ``A_u`` with ``b_u``, and three
   vectors of ``f``.
 
-The SGD tile kernel (``csrc/sgd_update.cu``) keeps its rows in registers
-and uses no dynamic shared memory, so it has no entry: its library is
-declared in :data:`SMEM_FREE`.  Worst case under the declared bound
+The SGD tile kernel (``csrc/sgd_update.cu``) and the squared error
+(``csrc/sq_err.cu``) keep their rows in registers and use no dynamic
+shared memory, so they have no entry: their libraries are declared in
+:data:`SMEM_FREE`.  Worst case under the declared bound
 f <= 128: 66048 B for the Hermitians, 43520 B for the solve, both far
 under the limit.
 
@@ -55,11 +56,12 @@ MIRRORS = (
     ("hermitian.py", "MAX_F", "herm_tile.cuh", "kMaxF"),
     ("batch_solve.py", "MAX_F", "batch_solve.cu", "kMaxF"),
     ("sgd_update.py", "MAX_F", "sgd_update.cu", "kMaxF"),
+    ("sq_err.py", "MAX_F", "sq_err.cu", "kMaxF"),
 )
 
 #: libraries (``kernels/build.load`` names) whose kernels use no dynamic
 #: shared memory, so they need no budget
-SMEM_FREE = ("sgd_update",)
+SMEM_FREE = ("sgd_update", "sq_err")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -27,7 +27,7 @@ from repro_torch.obs.trace import current_tracer
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("hermitian", "batch_solve", "sgd_update", "herm_hbm_accum")
+KERNELS = ("hermitian", "batch_solve", "sgd_update", "herm_hbm_accum", "sq_err")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,5 +1,6 @@
-"""The two ops the ALS driver calls, dispatching plain torch or the kernels
-(the reference's ``kernels/ops.py``).
+"""The ops the ALS driver and the objective call, dispatching plain torch or
+the kernels (the reference's ``kernels/ops.py``, and its objective's
+squared error).
 
 - ``mode="ref"``: the plain PyTorch version, on whatever device the
   tensors lie (gather + ``einsum``, ``torch.linalg`` Cholesky).
@@ -10,8 +11,9 @@
 tensors' device.  The reference's TPU tile knobs (``tm``/``tk``/``tb``/
 ``f_mult``) have no counterpart: the kernels take f <= 128 and any K, m
 unpadded.  Each op runs in a ``kernel.fused_herm`` /
-``kernel.batch_solve`` span of the current tracer (args: shapes only), so
-every caller's kernel time shows on a device-clock tracer.
+``kernel.batch_solve`` / ``kernel.sq_err`` span of the current tracer
+(args: shapes only), so every caller's kernel time shows on a
+device-clock tracer.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch
 from repro_torch.backend import Mode, default_mode
 from repro_torch.kernels.batch_solve import batch_solve_cuda, batch_solve_plain
 from repro_torch.kernels.hermitian import fused_herm_cuda, fused_herm_plain
+from repro_torch.kernels.sq_err import sq_err_cuda, sq_err_plain
 from repro_torch.obs.trace import current_tracer
 
 
@@ -85,3 +88,28 @@ def als_update_factor(
     """One half-iteration: given fixed theta, solve all rows of X (paper Alg. 1/2)."""
     A, B = fused_herm(theta, idx, val, cnt, lam, mode=mode)
     return batch_solve(A, B, mode=mode)
+
+
+def sq_err(
+    x: torch.Tensor,       # [*, f] row factors
+    theta: torch.Tensor,   # [n, f] column factors
+    idx: torch.Tensor,     # [m, K] padded column indices (int32)
+    val: torch.Tensor,     # [m, K] padded rating values
+    cnt: torch.Tensor,     # [m]    true nnz per row (int32)
+    *,
+    rows: Optional[torch.Tensor] = None,
+    out: Optional[torch.Tensor] = None,
+    mode: Optional[Mode] = None,
+) -> torch.Tensor:
+    """(sse, nnz) of a padded-ELL batch as a float64 [2] tensor, added into
+    ``out`` where given:
+
+    sse = sum_{u, k < cnt_u} (val[u, k] - x_u . theta[idx[u, k]])^2,  nnz = sum_u cnt_u
+
+    with x_u = x[rows[u]] where ``rows`` is given, else x[u]."""
+    mode = _mode(mode, theta)
+    with current_tracer().span("kernel.sq_err", cat="kernel", rows=idx.shape[0],
+                               K=idx.shape[1], f=theta.shape[1], fixed_rows=theta.shape[0]):
+        if mode == "kernel":
+            return sq_err_cuda(x, theta, idx, val, cnt, rows, out)
+        return sq_err_plain(x, theta, idx, val, cnt, rows, out)

@@ -24,10 +24,10 @@ the program counts wherever it runs:
 - ``kernel/<name>/launches``: the calls of a CUDA kernel's wrapper that
   launched it, and ``kernel/<name>/cuda_launches``: the CUDA launches
   those calls made (``fused_herm``, ``herm_hbm_accum``, ``batch_solve``,
-  ``sgd_tile``); :func:`kernel_launches` reads them by kernel;
+  ``sgd_tile``, ``sq_err``); :func:`kernel_launches` reads them by kernel;
 - ``host/syncs``: the places in the drivers' hot loops where the host
-  reads a device value (an RMSE's ``float()``, ``_rmse_bins``'s per-bin
-  reads) or waits for the stream.
+  reads a device value (an RMSE's ``float()``, ``_rmse_bins``' one read
+  of its accumulator) or waits for the stream.
 
 The counters only grow: a reader takes a delta between two reads, as a
 step span (``Tracer.step_span``) does over its own interval.

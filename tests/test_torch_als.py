@@ -198,3 +198,22 @@ def test_als_init_is_seeded_and_scaled():
     assert 0.0 <= float(a.x.min()) and float(a.x.max()) < 0.3
     c = port_als.als_init(50, 20, _port_cfg(seed=4))
     assert not torch.equal(a.x, c.x)
+
+
+@pytest.mark.parametrize("n_bins", [1, 3, 8])
+def test_rmse_bins_matches_unbinned_and_reference(n_bins):
+    """The binned train RMSE (every bin into one accumulator, read once)
+    against ``rmse_padded`` on the unbinned layout of the same ratings and
+    the reference's ``rmse_binned``, at factors that are not a fit."""
+    rb, rtb, _, _ = ref_synth.make_synthetic_ratings_binned(MINI, n_bins, seed=2)
+    r, _, _, _ = ref_synth.make_synthetic_ratings(MINI, seed=2)
+    rng = np.random.default_rng(n_bins)
+    x = rng.uniform(0.0, 0.5, (rb.m, MINI.f)).astype(np.float32)
+    theta = rng.uniform(0.0, 0.5, (rtb.m, MINI.f)).astype(np.float32)
+    xt, tt = torch.from_numpy(x), torch.from_numpy(theta)
+    got = port_als.rmse_binned(xt, tt, rb)
+    assert isinstance(got, float)
+    unbinned = float(port_obj.rmse_padded(xt, tt, *port_als.ell_triplet(r, "cpu")))
+    np.testing.assert_allclose(got, unbinned, rtol=1e-6)
+    np.testing.assert_allclose(
+        got, float(ref_als.rmse_binned(jnp.asarray(x), jnp.asarray(theta), rb)), rtol=1e-6)

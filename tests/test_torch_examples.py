@@ -72,7 +72,7 @@ def _launch_line(out: str) -> dict:
     lines = [ln for ln in out.splitlines() if ln.startswith("kernel launches: ")]
     assert len(lines) == 1, out
     counts = json.loads(lines[0].removeprefix("kernel launches: "))
-    assert set(counts) == {"fused_herm", "batch_solve", "sgd_tile", "herm_hbm_accum"}
+    assert set(counts) == {"fused_herm", "batch_solve", "sgd_tile", "herm_hbm_accum", "sq_err"}
     return counts
 
 
@@ -94,7 +94,7 @@ def test_every_solver_runs(run, solver, argv, where):
     assert rmses[-1] < rmses[0] or len(rmses) == 1, out
     # on the CPU the wrappers run their plain versions and count nothing
     assert _launch_line(out) == dict.fromkeys(
-        ("fused_herm", "batch_solve", "sgd_tile", "herm_hbm_accum"), 0)
+        ("fused_herm", "batch_solve", "sgd_tile", "herm_hbm_accum", "sq_err"), 0)
     if where == "out_of_core" and solver != "sgd":
         assert "out-of-core plan: " in out and "schedule: waves=" in out
     if where == "out_of_core" and solver != "als":

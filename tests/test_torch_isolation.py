@@ -128,14 +128,15 @@ def test_default_device_raises_without_gpu():
 def test_kernel_modules_do_not_build_on_import():
     code = (
         "import json\n"
-        "from repro_torch.kernels import build, hermitian, batch_solve, ops, sgd_update\n"
+        "from repro_torch.kernels import build, hermitian, batch_solve, ops, sgd_update, sq_err\n"
         "from repro_torch.core import als\n"
         "from repro_torch import sgd, checkpoint, training, obs, data, outofcore\n"
         "print(json.dumps({'loaded': list(build.loaded()),\n"
         "  'cached': hermitian._launcher.cache_info().currsize\n"
         "            + hermitian._bin_launcher.cache_info().currsize\n"
         "            + batch_solve._launcher.cache_info().currsize\n"
-        "            + sgd_update._launcher.cache_info().currsize,\n"
+        "            + sgd_update._launcher.cache_info().currsize\n"
+        "            + sq_err._launcher.cache_info().currsize,\n"
         "  'launches': sum(obs.kernel_launches().values())\n"
         "              + sum(obs.kernel_launches('cuda_launches').values()),\n"
         "  'counted': sorted(obs.kernel_launches())}))\n")
@@ -146,7 +147,7 @@ def test_kernel_modules_do_not_build_on_import():
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == \
         {"loaded": [], "cached": 0, "launches": 0,
-         "counted": ["batch_solve", "fused_herm", "herm_hbm_accum", "sgd_tile"]}
+         "counted": ["batch_solve", "fused_herm", "herm_hbm_accum", "sgd_tile", "sq_err"]}
 
 
 def test_build_names_sources_that_exist():

@@ -17,10 +17,12 @@ from repro.kernels import ops as ref_ops  # noqa: E402
 from repro.kernels import ref as ref_kref  # noqa: E402
 from repro.kernels.hermitian import herm_hbm_accum as ref_herm_hbm_accum  # noqa: E402
 from repro_torch.kernels import batch_solve as port_solve  # noqa: E402
+from repro_torch.core import objective as port_obj  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import hermitian as port_herm  # noqa: E402
 from repro_torch.kernels import ops as port_ops  # noqa: E402
 from repro_torch.kernels import ref as port_ref  # noqa: E402
+from repro_torch.kernels import sq_err as port_sq  # noqa: E402
 from repro_torch.obs import kernel_launches  # noqa: E402
 
 
@@ -234,3 +236,105 @@ def test_batch_solve_blocked_plain_clamps_like_the_reference(nb):
     np.testing.assert_allclose(x0[:, 5], 1e10, rtol=1e-3)
     x1 = port_ref.batch_solve_blocked_plain(*_t(A, B), nb).numpy()
     np.testing.assert_allclose(x1, x0, atol=5e-4, rtol=5e-4)
+
+
+def _sq_err_before(x, theta, idx, val, cnt, gather_elems=1 << 26):
+    """The objective's squared error as ``core/objective.py`` computed it
+    before the kernel: ``theta[idx]`` gathered in row chunks, an einsum."""
+    m, K = idx.shape
+    step = max(1, gather_elems // max(K * theta.shape[1], 1))
+    sse = torch.zeros((), dtype=x.dtype)
+    for lo in range(0, m, step):
+        hi = min(lo + step, m)
+        g = theta[idx[lo:hi].long()]
+        pred = torch.einsum("uf,ukf->uk", x[lo:hi], g)
+        err = (val[lo:hi] - pred) * port_ref.mask_from_cnt(cnt[lo:hi], K, x.dtype)
+        sse = sse + torch.sum(err * err)
+    return sse, torch.sum(cnt)
+
+
+def _sq_problem(seed, m, n, K, f, frac_empty=0.2):
+    theta, idx, val, cnt = _problem(seed, m, n, K, f, frac_empty)
+    x = np.random.default_rng(seed + 1).standard_normal((m, f)).astype(np.float32)
+    return _t(x, theta, idx, val, cnt)
+
+
+def _sq_err_f64(x, theta, idx, val, cnt):
+    """(sse, nnz) in float64 numpy, one rating at a time."""
+    x, theta, idx, val, cnt = (t.numpy().astype(np.float64) if t.is_floating_point()
+                               else t.numpy() for t in (x, theta, idx, val, cnt))
+    sse = 0.0
+    for u in range(idx.shape[0]):
+        k = cnt[u]
+        sse += float(np.sum((val[u, :k] - theta[idx[u, :k]] @ x[u]) ** 2))
+    return sse, int(cnt.sum())
+
+
+@pytest.mark.parametrize("K", [1, 7, 64, 300])
+@pytest.mark.parametrize("f", [8, 100, 128])
+def test_sq_err_plain_is_the_objectives_gather_and_einsum(f, K):
+    args = _sq_problem(f + K, 37, 50, K, f)
+    sse0, n0 = _sq_err_before(*args)
+    before = (kernel_launches(), kernel_launches("cuda_launches"))
+    for acc in (port_ops.sq_err(*args), port_ops.sq_err(*args, mode="ref"),
+                port_ops.sq_err(*args, mode="kernel"), port_sq.sq_err_cuda(*args)):
+        assert acc.dtype == torch.float64 and acc.shape == (2,)
+        assert acc.tolist() == [sse0.item(), float(n0)]
+    sse1, n1 = port_obj._sq_err_padded(*args)
+    assert sse1.dtype == torch.float32 and torch.equal(sse1, sse0) and torch.equal(n1, n0)
+    assert (kernel_launches(), kernel_launches("cuda_launches")) == before
+    assert "sq_err" not in build.loaded()
+
+
+@pytest.mark.parametrize("frac_empty", [0.0, 0.5, 1.0])
+def test_sq_err_counts_rows_with_no_rating(frac_empty):
+    args = _sq_problem(5, 40, 30, 16, 12, frac_empty)
+    sse, nnz = _sq_err_f64(*args)
+    acc = port_ops.sq_err(*args)
+    assert acc[1].item() == nnz
+    np.testing.assert_allclose(acc[0].item(), sse, rtol=1e-6)
+    if frac_empty == 1.0:
+        assert acc.tolist() == [0.0, 0.0]
+        assert port_obj.rmse_padded(*args).item() == 0.0
+
+
+@pytest.mark.parametrize("rows_per_chunk", [1, 3, 7])
+def test_sq_err_plain_chunk_boundaries(monkeypatch, rows_per_chunk):
+    K, f = 24, 8
+    args = _sq_problem(rows_per_chunk, 20, 30, K, f)
+    whole = port_ops.sq_err(*args)
+    monkeypatch.setattr(port_sq, "GATHER_ELEMS", rows_per_chunk * K * f)
+    chunked = port_ops.sq_err(*args)
+    assert chunked[1].item() == whole[1].item() == _sq_err_f64(*args)[1]
+    np.testing.assert_allclose(chunked[0].item(), whole[0].item(), rtol=1e-6)
+    assert chunked[0].item() == _sq_err_before(*args, rows_per_chunk * K * f)[0].item()
+
+
+def test_sq_err_row_map_adds_into_one_total():
+    x, theta, idx, val, cnt = _sq_problem(3, 30, 40, 16, 12)
+    perm = torch.from_numpy(np.random.default_rng(3).permutation(30))
+    x_all = torch.empty_like(x)
+    x_all[perm] = x                        # batch row u is row perm[u] of x_all
+    acc = torch.zeros(2, dtype=torch.float64)
+    parts = []
+    for sl in (slice(0, 11), slice(11, 30)):
+        ret = port_ops.sq_err(x_all, theta, idx[sl], val[sl], cnt[sl], rows=perm[sl], out=acc)
+        assert ret is acc
+        parts.append(port_ops.sq_err(x[sl], theta, idx[sl], val[sl], cnt[sl]))
+    assert acc.tolist() == (parts[0] + parts[1]).tolist()
+
+
+def test_sq_err_rejects_bad_inputs():
+    x, theta, idx, val, cnt = _sq_problem(4, 8, 40, 16, 8)
+    with pytest.raises(ValueError, match="outside"):
+        port_sq.sq_err_cuda(torch.zeros(8, 129), torch.zeros(40, 129), idx, val, cnt)
+    with pytest.raises(ValueError, match="int32"):
+        port_sq.sq_err_cuda(x, theta, idx.long(), val, cnt)
+    with pytest.raises(ValueError, match="shapes"):
+        port_sq.sq_err_cuda(x, theta, idx, val[:, :8], cnt)
+    with pytest.raises(ValueError, match="no row map"):
+        port_sq.sq_err_cuda(x[:4], theta, idx, val, cnt)
+    with pytest.raises(ValueError, match="rows must be"):
+        port_sq.sq_err_cuda(x, theta, idx, val, cnt, rows=torch.arange(8, dtype=torch.int32))
+    with pytest.raises(ValueError, match="out must be"):
+        port_sq.sq_err_cuda(x, theta, idx, val, cnt, out=torch.zeros(2))

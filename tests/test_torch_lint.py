@@ -322,7 +322,7 @@ def test_smem_budget_declares_every_library_and_mirror():
 
     assert {b.library for b in budgets.BUDGETS.values()} | set(budgets.SMEM_FREE) \
         == set(build.KERNELS)
-    assert len(budgets.MIRRORS) == 5
+    assert len(budgets.MIRRORS) == 6
     for module, const, source, cname in budgets.MIRRORS:
         text = (KERNELS / "csrc" / source).read_text()
         assert constexpr_value(text, cname) is not None, (source, cname)

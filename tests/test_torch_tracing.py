@@ -95,7 +95,7 @@ def _children(spans, parent):
 
 
 def test_als_train_binned_span_tree_args_and_counters(binned):
-    rb, rtb, _ = binned
+    rb, rtb, te = binned
     tr = obs.Tracer()
     _run_als(binned, tr)
     spans = tr.spans()
@@ -137,13 +137,19 @@ def test_als_train_binned_span_tree_args_and_counters(binned):
         assert ev.cat == "objective"
         assert [(e.name, e.args) for e in _children(spans, ev.id)] == \
             [("als.rmse_test", {}), ("als.rmse_train", {"nnz": rb.nnz})]
-        # two host reads per bin of R in the train RMSE, one for the test RMSE;
+        rmse_test, rmse_train = _children(spans, ev.id)
+        assert [(e.name, e.cat, e.args) for e in _children(spans, rmse_test.id)] == \
+            [("kernel.sq_err", "kernel", dict(rows=te.m, K=te.K, f=SPEC.f, fixed_rows=rtb.m))]
+        assert [(e.name, e.cat, e.args) for e in _children(spans, rmse_train.id)] == \
+            [("kernel.sq_err", "kernel", dict(rows=b.m, K=b.K, f=SPEC.f, fixed_rows=rtb.m))
+             for b in r_bins]
+        # one host read of the train RMSE's accumulator, one for the test RMSE;
         # no launch on the CPU
-        assert it.args["counters"] == {"host/syncs": 2 * len(r_bins) + 1}
+        assert it.args["counters"] == {"host/syncs": 2}
 
 
 def test_sgd_train_span_tree_args_and_counters(grid_problem):
-    grid, _ = grid_problem
+    grid, te = grid_problem
     tr = obs.Tracer()
     _, hist = _run_sgd(grid_problem, tr)
     spans = tr.spans()
@@ -171,6 +177,9 @@ def test_sgd_train_span_tree_args_and_counters(grid_problem):
         assert sum(e.args["live"] for e in kids[:G]) == grid.nnz
         assert [(e.name, e.cat) for e in _children(spans, kids[-1].id)] == \
             [("sgd.rmse_test", "objective")]
+        (rmse_test,) = _children(spans, kids[-1].id)
+        assert [(e.name, e.cat, e.args) for e in _children(spans, rmse_test.id)] == \
+            [("kernel.sq_err", "kernel", dict(rows=te.m, K=te.K, f=SPEC.f, fixed_rows=grid.n))]
         assert ep.args["counters"] == {"host/syncs": 1}
 
 
@@ -198,7 +207,8 @@ def test_tracing_adds_no_device_read_and_off_records_nothing(binned, grid_proble
         monkeypatch.undo()
         assert not {"synchronize", "Event", "current_stream"} & set(calls.n)
     assert reads["on"] == reads["off"]
-    assert reads["on"][1] == 2 * (2 * len([b for b in binned[0].bins if b.m]) + 1) + 2
+    # two ALS iterations of two RMSE reads each, two SGD epochs of one
+    assert reads["on"][1] == 2 * 2 + 2
     assert obs.current_tracer() is obs.NULL_TRACER
     assert obs.NULL_TRACER.step_span("x", cat="iteration", a=1) is obs.NOOP_SPAN
     assert obs.NULL_TRACER.resolve() is None and obs.NULL_TRACER.spans() == []
