@@ -35,14 +35,15 @@ def _herm_work(calls):
 
 
 def run(cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool,
-        device: torch.device, t_start: float) -> dict:
-    """One run of the cell.  Returns the end-to-end values, the traced
-    run's readings context, the comparison's numbers and the run's
-    counts."""
+        devices: list[torch.device], t_start: float) -> dict:
+    """One run of the cell on ``devices[0]``, its one card.  Returns the
+    end-to-end values, the traced run's readings context, the comparison's
+    numbers, the run's counts and each card's allocator peaks."""
     from repro_torch.core import als
     from repro_torch.kernels import ops
     from repro_torch.sparse.padded import bin_rows, pad_csr_fast
 
+    device = devices[0]
     spans = {}
     t0 = time.perf_counter()
     prob = data.make_problem(cfg, seed, device)
@@ -68,7 +69,7 @@ def run(cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool,
 
     acfg = als.AlsConfig(f=int(cfg["f"]), lam=float(cfg["lam"]), iters=1 << 30,
                          batch_rows=int(cfg["batch_rows"]), device=str(device))
-    w = Window(seconds, trace, device, t_start, keep=lambda state: (state.theta,))
+    w = Window(seconds, trace, devices, t_start, keep=lambda state: (state.theta,))
     if trace:
         w.timer.wrap(ops, "fused_herm", "fused_herm", _herm_shapes)
         w.timer.wrap(ops, "batch_solve", "batch_solve", _solve_shapes)
@@ -104,4 +105,4 @@ def run(cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool,
                                   last=last, reported=w.history[-1])
     log(f"judged in {time.perf_counter() - t0:.2f} s")
     return {"e2e": w.e2e("als_iter_ms"), "ctx": ctx, "numbers": numbers,
-            "attempted": w.steps, "failed": w.failed, "memory_peak_bytes": w.memory_peak}
+            "attempted": w.steps, "failed": w.failed, "peaks": w.peaks}

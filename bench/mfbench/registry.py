@@ -48,8 +48,20 @@ def traffic(name: str) -> dict:
 
 def driver(solver: str):
     """The driver of a traffic mix's ``solver``: ``mfbench/<solver>_cell.py``,
-    whose ``run(cfg, traffic, seed, seconds, trace, device, t_start)`` runs
-    one cell."""
+    whose ``run(cfg, traffic, seed, seconds, trace, devices, t_start)`` runs
+    one cell.
+
+    ``devices`` are the cell's ``chips`` cards, ``cuda:0`` onwards (one CPU
+    device in the tests); ``devices[0]`` is the home card, where the
+    ratings are made, and a driver that spreads its work hands the list
+    on (a mesh: ``repro_torch.launch.mesh.make_mesh(..., devices=...)``).
+    It measures through a :class:`mfbench.window.Window` over ``devices``
+    and returns ``e2e`` (the end-to-end values), ``ctx`` (what the
+    per-layer readers read; a traced run's ``ctx["device"]`` is the
+    profiler's :func:`mfbench.devtrace.reduce_trace`), ``numbers`` (what
+    ``correct`` compares), ``attempted``, ``failed`` and ``peaks``
+    (``Window.peaks``: each card's set-up and window peaks), from which
+    the result counts the cards the run used."""
     if not (BENCH / "mfbench" / f"{solver}_cell.py").is_file():
         raise KeyError(f"no driver mfbench/{solver}_cell.py for solver {solver!r}")
     return importlib.import_module(f"mfbench.{solver}_cell")

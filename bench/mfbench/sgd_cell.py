@@ -22,13 +22,15 @@ def _plan_shapes(x, theta, plan, lr, lam):
 
 
 def run(cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool,
-        device: torch.device, t_start: float) -> dict:
-    """One run of the cell, in the form of :func:`mfbench.als_cell.run`."""
+        devices: list[torch.device], t_start: float) -> dict:
+    """One run of the cell on ``devices[0]``, in the form of
+    :func:`mfbench.als_cell.run`."""
     from repro_torch.core.als import ell_triplet
     from repro_torch.sgd import train as sgd
     from repro_torch.sgd.blocking import block_coo
     from repro_torch.sparse.padded import pad_csr_fast
 
+    device = devices[0]
     spans = {}
     t0 = time.perf_counter()
     prob = data.make_problem(cfg, seed, device)
@@ -56,7 +58,7 @@ def run(cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool,
                         theta=sgd.pad_factor(prob.theta0, g * grid.nb), epoch=0)
     start = (prob.x0.cpu(), prob.theta0.cpu())
     del prob.x0, prob.theta0
-    w = Window(seconds, trace, device, t_start)
+    w = Window(seconds, trace, devices, t_start)
     if trace:
         w.timer.wrap(sgd, "sgd_tile_planned_", "sgd_tile", _plan_shapes)
         w.timer.wrap(sgd, "rmse_padded", "objective")
@@ -92,4 +94,4 @@ def run(cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool,
     numbers = reference.judge_sgd(sched, prob.test, float(cfg["lam"]), epochs, w.history[-1])
     log(f"judged in {time.perf_counter() - t0:.2f} s")
     return {"e2e": w.e2e("sgd_epoch_ms"), "ctx": ctx, "numbers": numbers,
-            "attempted": w.steps, "failed": w.failed, "memory_peak_bytes": w.memory_peak}
+            "attempted": w.steps, "failed": w.failed, "peaks": w.peaks}

@@ -6,12 +6,16 @@ A traced run then keeps a ``torch.profiler`` window open for a few more
 steps.  Each callback comes after the step's RMSE ``float()``, so the
 device is idle at both ends.  The callback stops the driver by raising
 :class:`Closed`.
+
+The window covers every card of the cell: it waits for each, and reads and
+resets each card's allocator peak at the opening and at the close.
 """
 from __future__ import annotations
 
 import math
 import sys
 import time
+from collections import defaultdict
 
 import torch
 
@@ -30,35 +34,54 @@ class Closed(Exception):
     """Raised from the callback to stop the driver at the window's close."""
 
 
+def used_cards(peaks: dict, card_busy: dict | None = None) -> list[int]:
+    """The cards a run used, from ``peaks`` ({card: (set-up peak, window
+    peak)}): those that held or allocated memory in the window (its peak,
+    read after the reset at the opening, above 0), and, where a traced
+    run gives ``card_busy`` ({card: busy seconds}), showed device work in
+    the profiler's window."""
+    return [card for card, (_, window) in peaks.items()
+            if window > 0 and (card_busy is None or card_busy.get(card, 0) > 0)]
+
+
 class Window:
     """Callback state of one run.  After the driver stops it holds the
-    set-up seconds, the window's seconds and steps, the allocator's peaks,
-    the first step's factors, the last state, ``prev``: the tensors that
-    ``keep`` picks of the state before it, and every step's record.
+    set-up seconds, the window's seconds and steps, each card's allocator
+    peaks (``peaks``), the first step's factors, the last state, ``prev``:
+    the tensors that ``keep`` picks of the state before it, and every
+    step's record.
 
     ``prev`` lives on the host: each callback starts a copy of ``keep`` of
-    its state into pinned host buffers on a side stream, which runs beside
-    the next step, so that the benchmark holds no factor on the card and
-    the allocator's peak is the program's own.  The callback's own state
-    is held until the next callback, as the driver itself holds it
-    through the next step's update."""
+    its state into pinned host buffers, on a side stream of each card
+    those tensors live on, which runs beside the next step, so that the
+    benchmark holds no factor on a card and the allocator's peaks are the
+    program's own.  The callback's own state is held until the next
+    callback, as the driver itself holds it through the next step's
+    update."""
 
-    def __init__(self, seconds: float, trace: bool, device: torch.device, t_start: float,
+    def __init__(self, seconds: float, trace: bool, devices, t_start: float,
                  keep=lambda state: (state.x, state.theta)):
         self.seconds, self.trace, self.t_start = seconds, trace, t_start
         self.keep = keep
-        self.cuda = device.type == "cuda"
-        self.timer = devtrace.OpTimer(device)
-        self.prof = devtrace.Profile(device) if trace else None
+        self.cards = devtrace.cards(devices)
+        self.cuda = bool(self.cards)
+        self.timer = devtrace.OpTimer(devices)
+        self.prof = devtrace.Profile(devices) if trace else None
         self.phase = "setup"
         self.steps = self.prof_steps = 0
         self.history: list[dict] = []
         self.prev = self.last = self.first = None
-        self.setup_peak = self.window_peak = 0
+        self.setup_peaks = {c.index: 0 for c in self.cards}
+        self.window_peaks = dict(self.setup_peaks)
         self.t_close = None
-        self._stream = torch.cuda.Stream(device) if self.cuda else None
+        self._streams: dict[torch.device, torch.cuda.Stream] = {}
         self._bufs: list[tuple] = []
         self._pending = None
+
+    def _side_stream(self, card: torch.device):
+        if card not in self._streams:
+            self._streams[card] = torch.cuda.Stream(card)
+        return self._streams[card]
 
     def _hold(self, state) -> tuple | None:
         """Starts the host copy of ``keep(state)`` and returns the finished
@@ -71,10 +94,15 @@ class Window:
         done = self._pending
         buf = self._bufs[0] if done is not self._bufs[0] else self._bufs[1]
         if self.cuda:
-            self._stream.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(self._stream):
-                for b, t in zip(buf, tensors):
-                    b.copy_(t, non_blocking=True)
+            by_card = defaultdict(list)
+            for b, t in zip(buf, tensors):
+                by_card[t.device].append((b, t))
+            for card, pairs in by_card.items():
+                stream = self._side_stream(card)
+                stream.wait_stream(torch.cuda.current_stream(card))
+                with torch.cuda.stream(stream):
+                    for b, t in pairs:
+                        b.copy_(t, non_blocking=True)
         else:
             for b, t in zip(buf, tensors):
                 b.copy_(t)
@@ -82,13 +110,16 @@ class Window:
         return done
 
     def _sync(self) -> None:
-        if self.cuda:
-            torch.cuda.synchronize()
+        for card in self.cards:
+            torch.cuda.synchronize(card)
+
+    def _read_peaks(self) -> dict:
+        return {c.index: torch.cuda.max_memory_allocated(c) for c in self.cards}
 
     def __call__(self, state, rec) -> None:
         now = time.perf_counter()
-        if self.cuda:
-            self._stream.synchronize()      # the last callback's copy has landed
+        for stream in self._streams.values():
+            stream.synchronize()            # the last callback's copy has landed
         self.prev = self._hold(state)
         self.last = state
         self.history.append(rec)
@@ -97,9 +128,9 @@ class Window:
             self._sync()
             now = time.perf_counter()
             self.setup_s = now - self.t_start
-            if self.cuda:
-                self.setup_peak = torch.cuda.max_memory_allocated()
-                torch.cuda.reset_peak_memory_stats()
+            self.setup_peaks = self._read_peaks()
+            for card in self.cards:
+                torch.cuda.reset_peak_memory_stats(card)
             log(f"set-up {self.setup_s:.2f} s; window opens")
             self.phase, self.t_open = "window", now
             self.timer.on = self.trace
@@ -109,8 +140,7 @@ class Window:
             if now - self.t_open < self.seconds:
                 return
             self.t_close = now
-            if self.cuda:
-                self.window_peak = torch.cuda.max_memory_allocated()
+            self.window_peaks = self._read_peaks()
             self.timer.on = False
             if not self.trace:
                 raise Closed
@@ -151,9 +181,13 @@ class Window:
                    if not all(math.isfinite(v) for v in h.values()))
 
     def e2e(self, step_metric: str) -> dict:
+        """The end-to-end values; ``peak_mem_GiB`` is the fullest card's
+        window peak."""
         return {"setup_s": self.setup_s, step_metric: self.step_ms,
-                "peak_mem_GiB": self.window_peak / 2**30}
+                "peak_mem_GiB": max(self.window_peaks.values(), default=0) / 2**30}
 
     @property
-    def memory_peak(self) -> int:
-        return max(self.setup_peak, self.window_peak)
+    def peaks(self) -> dict:
+        """{card: (set-up peak, window peak)} in bytes, for each of the
+        cell's cards."""
+        return {c: (self.setup_peaks[c], self.window_peaks[c]) for c in self.setup_peaks}

@@ -7,9 +7,12 @@ and its metrics are looked up by name in ``BENCHMARK.json``.  The last
 line of standard output is one JSON object (``correct``, ``attempted``,
 ``failed``, ``metrics``, ``device``, with ``--trace 1`` also
 ``breakdown``, and last ``checks``: each number compared with its limit);
-the same numbers are the last lines of standard error.  Without a CUDA
-card, or without the program beside the benchmark, it exits non-zero and
-prints no result.
+the same numbers are the last lines of standard error.  The cell runs on
+the ``chips`` cards that ``BENCHMARK.json`` gives it, ``cuda:0`` onwards,
+and ``device`` reports the cards the run used (``count``), their shared
+name and the fullest card's peak; each card's peaks go to standard error.
+Without as many CUDA cards, or without the program beside the benchmark,
+it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -48,15 +51,33 @@ def forbidden_modules(modules=None) -> list[str]:
     return sorted(n for n in names if n.split(".", 1)[0] in FORBIDDEN)
 
 
-def power_limit_w() -> float | None:
-    """The card's power limit in watts, as ``nvidia-smi`` reads it."""
+def power_limit_w(cards: list[int]) -> float | None:
+    """The lowest power limit among ``cards``, in watts, as ``nvidia-smi``
+    reads each (None where one cannot be read)."""
+    limits = []
     try:
-        out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=power.limit", "--format=csv,noheader,nounits", "-i", "0"],
-            capture_output=True, text=True, timeout=30, check=True).stdout
-        return float(out.strip().splitlines()[0])
+        for card in cards:
+            out = subprocess.run(
+                ["nvidia-smi", "--query-gpu=power.limit", "--format=csv,noheader,nounits",
+                 "-i", str(card)], capture_output=True, text=True, timeout=30, check=True).stdout
+            limits.append(float(out.strip().splitlines()[0]))
     except (OSError, subprocess.SubprocessError, ValueError, IndexError):
         return None
+    return min(limits, default=None)
+
+
+class MixedCards(Exception):
+    """The cards a run used do not share one name."""
+
+
+def describe_cards(cards: list[int]) -> dict:
+    """``kind``, the name the cards share, and ``power_limit_w``, the
+    lowest of their limits."""
+    import torch
+    names = sorted({torch.cuda.get_device_name(c) for c in cards})
+    if len(names) != 1:
+        raise MixedCards(f"the cards {cards} the run used are named {names}")
+    return {"kind": names[0], "power_limit_w": power_limit_w(cards)}
 
 
 def check_numbers(numbers: dict, limits: dict) -> tuple[bool, dict]:
@@ -68,21 +89,35 @@ def check_numbers(numbers: dict, limits: dict) -> tuple[bool, dict]:
     return ok, checks
 
 
-def run_cell(workload_name: str, seed: int, seconds: float, trace: bool, device,
+def run_cell(workload_name: str, seed: int, seconds: float, trace: bool, devices: list,
              spec: dict | None = None, config: dict | None = None,
              limits: dict | None = None, t_start: float = T_START) -> dict:
-    """Everything of a run but the look for a card: the cell's driver, its
-    metrics, and the comparison.  ``config`` and ``limits`` replace the
-    cell's own (tests run a cell at a tiny size).  Returns the result
-    object."""
+    """Everything of a run but the look for cards: the cell's driver on
+    ``devices`` (``devices[0]`` the home card), its metrics, and the
+    comparison.  ``config`` and ``limits`` replace the cell's own (tests
+    run a cell at a tiny size).  Returns the result object; on CUDA cards
+    its ``device`` is described by :func:`describe_cards`."""
     from mfbench import registry
+    from mfbench.window import log, used_cards
 
     spec = spec or registry.benchmark()
     wl = registry.workload(workload_name, spec)
     cfg = config or registry.config(wl["config"], spec)
     traffic = registry.traffic(wl["traffic"])
     driver = registry.driver(traffic["solver"])
-    out = driver.run(cfg, traffic, seed, seconds, trace, device, t_start)
+    out = driver.run(cfg, traffic, seed, seconds, trace, devices, t_start)
+
+    # the cards the run used, and the mean busy time over them
+    peaks = out["peaks"]
+    dt = out["ctx"]["device"] if trace else None
+    used = used_cards(peaks, dt["card_busy_s"] if trace else None)
+    if trace:
+        busy = [dt["card_busy_s"][c] for c in used]
+        dt["busy_s"] = sum(busy) / len(busy) if busy else 0.0
+    for card, (setup_peak, window_peak) in peaks.items():
+        note = f", busy {dt['card_busy_s'].get(card, 0.0)!r} s" if trace else ""
+        log(f"card {card}: set-up peak {setup_peak} B, window peak {window_peak} B{note}"
+            f"{'' if card in used else ', not used'}")
 
     metrics = {}
     if trace:
@@ -95,15 +130,17 @@ def run_cell(workload_name: str, seed: int, seconds: float, trace: bool, device,
             metrics[m["name"]] = {"value": out["e2e"][m["name"]], "unit": m["unit"]}
     correct, checks = check_numbers(
         out["numbers"], registry.limits(workload_name) if limits is None else limits)
+    home = devices[0]
     result = {"correct": correct, "attempted": out["attempted"], "failed": out["failed"],
               "metrics": metrics,
-              "device": {"platform": "gpu" if device.type == "cuda" else device.type,
-                         "kind": None, "count": 1,
-                         "memory_peak_bytes": out["memory_peak_bytes"]}}
+              "device": {"platform": "gpu" if home.type == "cuda" else home.type,
+                         "kind": None, "count": len(used),
+                         "memory_peak_bytes": max((max(p) for p in peaks.values()), default=0)}}
     if trace:
-        dt = out["ctx"]["device"]
         result["device"].update(busy_s=dt["busy_s"], window_s=dt["window_s"])
         result["breakdown"] = {"device_ops": dt["device_ops"], "idle_gaps": dt["idle_gaps"]}
+    if home.type == "cuda":
+        result["device"].update(describe_cards(used or [home.index]))
     result["checks"] = checks
     return result
 
@@ -129,17 +166,19 @@ def main(argv=None) -> int:
         return 2
     import repro_torch  # noqa: F401  (fails here when the program is not beside the benchmark)
 
-    device = torch.device("cuda", 0)
-    result = run_cell(args.workload, args.seed, args.seconds, bool(args.trace), device, spec)
+    devices = [torch.device("cuda", i) for i in range(chips)]
+    try:
+        result = run_cell(args.workload, args.seed, args.seconds, bool(args.trace), devices,
+                          spec)
+    except MixedCards as exc:
+        print(exc, file=sys.stderr)
+        return 4
     bad = forbidden_modules()
     if bad:
         print(f"the process loaded {', '.join(bad)}: no JAX, and not the reference package",
               file=sys.stderr)
         return 3
-    result["device"]["kind"] = torch.cuda.get_device_name(0)
-    result["device"]["power_limit_w"] = power_limit_w()
-    checks = result.pop("checks")
-    result["checks"] = checks       # last key of the line
+    checks = result["checks"]
     for name, c in checks.items():
         print(f"check {name}: {c['value']!r} limit {c['limit']!r}", file=sys.stderr)
     print(json.dumps(result))

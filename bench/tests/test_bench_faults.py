@@ -21,7 +21,7 @@ def tiny_config(name="netflix"):
 
 def run_tiny(bench_run, cfg, trace=False, workload="netflix.als"):
     import time
-    return bench_run.run_cell(workload, 2**31 + 101, 0.3, trace, torch.device("cpu"),
+    return bench_run.run_cell(workload, 2**31 + 101, 0.3, trace, [torch.device("cpu")],
                               config=cfg, t_start=time.perf_counter())
 
 

@@ -25,7 +25,7 @@ def _drive(w, states, pause=0.0):
 @pytest.mark.parametrize("seconds,pause", [(0.0, 0.0), (0.05, 0.02)])
 def test_prev_is_a_copy_of_the_state_before_the_last(seconds, pause):
     states = _states(40)
-    w = Window(seconds, False, torch.device("cpu"), time.perf_counter())
+    w = Window(seconds, False, [torch.device("cpu")], time.perf_counter())
     _drive(w, states, pause)
     last = next(i for i, s in enumerate(states) if s is w.last)
     assert w.steps == last >= 1
@@ -37,13 +37,13 @@ def test_prev_is_a_copy_of_the_state_before_the_last(seconds, pause):
 
 def test_keep_picks_what_is_copied():
     states = _states(5)
-    w = Window(0.0, False, torch.device("cpu"), time.perf_counter(),
+    w = Window(0.0, False, [torch.device("cpu")], time.perf_counter(),
                keep=lambda state: (state.theta,))
     _drive(w, states)
     assert len(w.prev) == 1 and torch.equal(w.prev[0], states[0].theta)
 
 
 def test_driver_that_stops_early_is_an_error():
-    w = Window(60.0, False, torch.device("cpu"), time.perf_counter())
+    w = Window(60.0, False, [torch.device("cpu")], time.perf_counter())
     with pytest.raises(RuntimeError):
         _drive(w, _states(3))

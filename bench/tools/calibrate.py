@@ -58,7 +58,7 @@ def main() -> int:
 
         for seed in args.program_seeds:
             t0 = time.perf_counter()
-            res = bench_run.run_cell(args.workload, seed, args.seconds, False, device,
+            res = bench_run.run_cell(args.workload, seed, args.seconds, False, [device],
                                      t_start=t0)
             emit({"workload": args.workload, "side": "program", "seed": seed,
                   "numbers": {k: c["value"] for k, c in res["checks"].items()},
