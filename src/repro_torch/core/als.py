@@ -281,42 +281,95 @@ def als_train_binned(
     test: Optional[tuple] = None,
     callback=None,
     init: Optional[AlsState] = None,
+    *,
+    mesh=None,
 ) -> tuple[AlsState, list[dict]]:
     """In-core training driver over binned layouts: the schedule of
     :func:`als_train` with both half-updates dispatched per bin.  ``rb`` /
     ``rtb`` are BinnedELLs of R (rows=users) and R^T (rows=items); their
     bins go to the card once, before the first iteration.  Spans (on the
-    process's current tracer) and counters: the module docstring."""
+    process's current tracer) and counters: the module docstring.
+
+    With a ``launch.mesh.Mesh``, SU-ALS (paper Alg. 3) over its cells:
+    ``rb`` / ``rtb`` are ``sparse.padded.BinnedShards`` with as many column
+    shards as the mesh has column cells, uploaded to the cells once
+    (``distributed.su_als.place_side``); each half is
+    ``distributed.su_als.mesh_half``, whose reduction is two-level (Fig.
+    5b) on a mesh with a pod axis and one-phase (Fig. 5a) without; the
+    train RMSE sums the cells' partials
+    (``su_als.rmse_shards``) and the test RMSE runs on the mesh's home
+    device, where the returned state's factors lie.  The loop, the
+    callback and the records are the one-card path's; the spans over
+    several cards time every card (``obs/trace.py``)."""
     tracer = current_tracer()
     state = als_init(rb.m, rtb.m, cfg) if init is None else init
-    r_bins = _device_bins(rb, cfg.device)
-    rt_bins = _device_bins(rtb, cfg.device)
-    # the bins' ratings go to the halves only while tracing, so a stand-in
-    # with _update_factor_bins' four positional arguments (the benchmark's
-    # fault checks) still fits an untraced run
-    r_kw = rt_kw = train_args = {}
-    if tracer.enabled:
-        r_kw, rt_kw = ({"nnz": _bin_nnz(rb, cfg.batch_rows)},
-                       {"nnz": _bin_nnz(rtb, cfg.batch_rows)})
-        train_args = {"nnz": rb.nnz}
+    train_args, cards, test_cards = {}, None, None
+    if mesh is None:
+        r_bins = _device_bins(rb, cfg.device)
+        rt_bins = _device_bins(rtb, cfg.device)
+        # the bins' ratings go to the halves only while tracing, so a stand-in
+        # with _update_factor_bins' four positional arguments (the benchmark's
+        # fault checks) still fits an untraced run
+        r_kw = rt_kw = {}
+        if tracer.enabled:
+            r_kw, rt_kw = ({"nnz": _bin_nnz(rb, cfg.batch_rows)},
+                           {"nnz": _bin_nnz(rtb, cfg.batch_rows)})
+            train_args = {"nnz": rb.nnz}
+
+        def update_x(theta):
+            return _update_factor_bins(theta, r_bins, rb.m, cfg, **r_kw)
+
+        def update_theta(x):
+            return _update_factor_bins(x, rt_bins, rtb.m, cfg, **rt_kw)
+
+        def train_rmse(x, theta):
+            return _rmse_bins(x, theta, r_bins)
+
+        def home(factor):
+            return factor
+        theta_f = state.theta
+    else:
+        from repro_torch.distributed import su_als
+        r_side, rt_side = su_als.place_side(rb, mesh), su_als.place_side(rtb, mesh)
+        kw = dict(f=cfg.f, batch_rows=cfg.batch_rows, mode=cfg.mode)
+        r_kw, rt_kw = dict(kw), dict(kw)
+        if tracer.enabled:
+            r_kw["nnz"] = su_als.mesh_nnz(r_side, cfg.batch_rows)
+            rt_kw["nnz"] = su_als.mesh_nnz(rt_side, cfg.batch_rows)
+            train_args = {"nnz": rb.nnz}
+        cards, test_cards = mesh.distinct_devices, [mesh.home]
+
+        def update_x(theta):
+            return su_als.mesh_half(theta, r_side, mesh, cfg.lam, **r_kw)
+
+        def update_theta(x):
+            return su_als.mesh_half(x, rt_side, mesh, cfg.lam, **rt_kw)
+
+        def train_rmse(x, theta):
+            return su_als.rmse_shards(x, theta, r_side, mesh, mode=cfg.mode)
+
+        def home(factor):
+            return factor[mesh.home]
+        theta_f = su_als.replicate(state.theta, mesh)
     history: list[dict] = []
     for it in range(cfg.iters):
+        tracer.anchor(cards)
         with tracer.step_span("als.iteration", cat="iteration",
                               iteration=state.iteration + 1):
-            with tracer.span("als.half", cat="half", side="x"):
-                x = _update_factor_bins(state.theta, r_bins, rb.m, cfg, **r_kw)
-            with tracer.span("als.half", cat="half", side="theta"):
-                theta = _update_factor_bins(x, rt_bins, rtb.m, cfg, **rt_kw)
-            state = AlsState(x=x, theta=theta, iteration=state.iteration + 1)
+            with tracer.span_on(cards, "als.half", cat="half", side="x"):
+                x_f = update_x(theta_f)
+            with tracer.span_on(cards, "als.half", cat="half", side="theta"):
+                theta_f = update_theta(x_f)
+            state = AlsState(x=home(x_f), theta=home(theta_f), iteration=state.iteration + 1)
             rec = {"iteration": it + 1}
-            with tracer.span("als.evaluate", cat="objective"):
+            with tracer.span_on(cards, "als.evaluate", cat="objective"):
                 if test is not None:
-                    with tracer.span("als.rmse_test", cat="objective"):
+                    with tracer.span_on(test_cards, "als.rmse_test", cat="objective"):
                         rec["test_rmse"] = float(
                             rmse_padded(state.x, state.theta, test[0], test[1], test[2]))
                         _SYNCS.inc()
-                with tracer.span("als.rmse_train", cat="objective", **train_args):
-                    rec["train_rmse"] = _rmse_bins(state.x, state.theta, r_bins)
+                with tracer.span_on(cards, "als.rmse_train", cat="objective", **train_args):
+                    rec["train_rmse"] = train_rmse(x_f, theta_f)
         history.append(rec)
         if callback is not None:
             callback(state, rec)

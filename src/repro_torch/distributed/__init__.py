@@ -7,8 +7,10 @@ cells of a ``launch.mesh.Mesh`` (cards, or cells sharing one card).
 - reduce.py      : the same two-phase scheme as a host-scheduled staged
                    reduction (ring within fast domains, tree across them) —
                    combines the streaming drivers' per-data-shard partials;
-- su_als.py      : SU-ALS (paper Alg. 3) over the cells, and the per-wave
-                   mesh entry points the out-of-core drivers dispatch through;
+- su_als.py      : SU-ALS (paper Alg. 3) over the cells: the resident-shard
+                   half-step ``core.als.als_train_binned(..., mesh=)`` runs,
+                   and the per-wave mesh entry points the out-of-core
+                   drivers dispatch through;
 - sharding.py    : the LM's logical-axis policies and ``Sharded``, a tensor
                    laid out as one block a cell (parameters and train
                    states);

@@ -28,6 +28,14 @@ its all-reduce, when autograd reaches them.  :func:`wire_bytes` prices a
 record by the ring formulas the reference's ``parse_collectives`` uses.
 Outside the context counting costs one ``None`` test a call.
 
+Every run, counted or not, also adds each collective to the process
+registry (``obs.metrics``): ``collective/<kind>/calls`` and
+``collective/<kind>/bytes`` (``reduce_scatter``, ``all_gather``,
+``all_reduce``, ...), the bytes each cell receives from the others by the
+same ring formulas over the cells that took part, summed over those cells.
+A reduce-scatter of a ``|T|``-byte tensor over g cells counts ``(g - 1)
+|T|``: each cell receives every other cell's part of its own chunk.
+
 Autograd runs through :func:`all_gather` and :func:`all_reduce` as they
 are (``torch.cat``, ``Tensor.to`` and the in-place adds into
 :func:`_sum_to`'s own copy are differentiable): the gradient of an
@@ -44,6 +52,8 @@ import math
 from typing import Mapping, Optional, Sequence
 
 import torch
+
+from repro_torch.obs.metrics import process_registry
 
 
 # ---------------------------------------------------------------------------
@@ -161,8 +171,21 @@ def counting_active() -> bool:
     return _COUNTER is not None
 
 
+def _tally(kind: str, r: float, cells: int) -> None:
+    """One collective in the process registry (module docstring): its
+    calls, and the bytes its ``cells`` receive, each a result of ``r``
+    bytes, by :func:`wire_bytes` over the cells as one group."""
+    if cells <= 1:
+        return
+    reg, key = process_registry(), kind.replace("-", "_")
+    reg.counter(f"collective/{key}/calls").inc()
+    reg.counter(f"collective/{key}/bytes").inc(wire_bytes(kind, r, cells) * cells)
+
+
 def note(kind: str, r: float, axes=None, cells: int = 1) -> None:
-    """Count one collective in the open :func:`counting` context, if any."""
+    """Count one collective in the process registry and in the open
+    :func:`counting` context, if any."""
+    _tally(kind, r, cells)
     if _COUNTER is not None:
         _COUNTER.note(kind, r, axes, cells)
 
@@ -175,10 +198,11 @@ def _note_with_backward(t: torch.Tensor, kind: str, back: str, axes, cells: int)
     """Count ``kind`` with result ``t`` and, once autograd reaches ``t``,
     its backward ``back`` (a reduce-scatter of a gather: its result the
     gathered whole over g; an all-reduce of a sum: the same bytes)."""
+    r = _nbytes(t)
+    _tally(kind, r, cells)
     ctr = _COUNTER
     if ctr is None:
         return
-    r = _nbytes(t)
     ctr.note(kind, r, axes, cells)
     if t.requires_grad and torch.is_grad_enabled():
         t.register_hook(lambda _: ctr.note(back, r, axes, cells,
@@ -194,21 +218,27 @@ def _sum_to(pieces: Sequence[torch.Tensor], device: torch.device) -> torch.Tenso
     return acc
 
 
-def reduce_scatter_flat(parts: Sequence[torch.Tensor],
-                        scatter_axis: int = 0, axes=None) -> list[torch.Tensor]:
+def _chunks(size: int, n_cells: int, ragged: bool) -> list[tuple[int, int]]:
+    """(start, length) of each cell's chunk of ``size`` rows: equal chunks,
+    or with ``ragged`` chunks of ``ceil(size / n_cells)`` rows, the last
+    ones short (or empty)."""
+    if not ragged and size % n_cells:
+        raise ValueError(f"an axis of size {size} does not split over {n_cells} cells")
+    step = -(-size // n_cells)
+    return [(min(c * step, size), min(step, max(size - c * step, 0))) for c in range(n_cells)]
+
+
+def reduce_scatter_flat(parts: Sequence[torch.Tensor], scatter_axis: int = 0, axes=None,
+                        *, ragged: bool = False) -> list[torch.Tensor]:
     """One-phase parallel reduction (Fig. 5a): cell c receives chunk c of
     the sum of all cells' tensors, on its own device.  ``axes``: the mesh
-    axes the cells span (for :func:`counting`)."""
+    axes the cells span (for :func:`counting`).  The axis must split evenly
+    over the cells unless ``ragged`` (:func:`_chunks`)."""
     n_cells = len(parts)
-    size = parts[0].shape[scatter_axis]
-    if size % n_cells:
-        raise ValueError(f"axis {scatter_axis} of size {size} does not split "
-                         f"over {n_cells} cells")
-    chunk = size // n_cells
-    note("reduce-scatter", _nbytes(parts[0]) // n_cells, axes, n_cells)
-    return [_sum_to([p.narrow(scatter_axis, c * chunk, chunk) for p in parts],
-                    owner.device)
-            for c, owner in enumerate(parts)]
+    chunks = _chunks(parts[0].shape[scatter_axis], n_cells, ragged)
+    note("reduce-scatter", _nbytes(parts[0]) / n_cells, axes, n_cells)
+    return [_sum_to([p.narrow(scatter_axis, lo, n) for p in parts], owner.device)
+            for (lo, n), owner in zip(chunks, parts)]
 
 
 def hierarchical_reduce_scatter(parts: Sequence[torch.Tensor], n_fast: int,
@@ -239,7 +269,8 @@ def hierarchical_reduce_scatter(parts: Sequence[torch.Tensor], n_fast: int,
 
 def two_level_reduce_scatter(parts: Sequence[torch.Tensor], n_fast: int,
                              scatter_axis: int = 0, fast_axes=None,
-                             slow_axes=None) -> list[torch.Tensor]:
+                             slow_axes=None, *, ragged: bool = False,
+                             phase=None) -> list[torch.Tensor]:
     """Two-phase reduce-scatter down to 1/P of the total a cell, the
     reduction SU-ALS runs (Fig. 5b with a scattered slow phase): reduce-
     scatter within each fast group, then reduce-scatter each fast chunk
@@ -247,14 +278,23 @@ def two_level_reduce_scatter(parts: Sequence[torch.Tensor], n_fast: int,
     :func:`hierarchical_reduce_scatter`; cell (s, f) is left with sub-slice
     s of chunk f.  :func:`hierarchical_reduce_scatter` (the reference's
     export) all-reduces the slow phase instead, replicating chunk f.
-    ``fast_axes`` / ``slow_axes`` as there."""
+    ``fast_axes`` / ``slow_axes`` as there; ``ragged`` as in
+    :func:`reduce_scatter_flat`, in both phases.  ``phase(name, nbytes)``,
+    where given, is the context each phase runs in (``"fast"``, then
+    ``"slow"``), with the bytes the phase's cells receive, summed over
+    them."""
     if len(parts) % n_fast:
         raise ValueError(f"{len(parts)} cells do not form groups of {n_fast}")
     n_slow = len(parts) // n_fast
-    fast = [reduce_scatter_flat(parts[s * n_fast:(s + 1) * n_fast], scatter_axis, fast_axes)
-            for s in range(n_slow)]
-    slow = [reduce_scatter_flat([fast[s][f] for s in range(n_slow)], scatter_axis, slow_axes)
-            for f in range(n_fast)]
+    total = _nbytes(parts[0])
+    with contextlib.nullcontext() if phase is None else phase("fast", n_slow * (n_fast - 1) * total):
+        fast = [reduce_scatter_flat(parts[s * n_fast:(s + 1) * n_fast], scatter_axis,
+                                    fast_axes, ragged=ragged)
+                for s in range(n_slow)]
+    with contextlib.nullcontext() if phase is None else phase("slow", (n_slow - 1) * total):
+        slow = [reduce_scatter_flat([fast[s][f] for s in range(n_slow)], scatter_axis,
+                                    slow_axes, ragged=ragged)
+                for f in range(n_fast)]
     return [slow[f][s] for s in range(n_slow) for f in range(n_fast)]
 
 

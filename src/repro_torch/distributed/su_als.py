@@ -25,9 +25,23 @@ the order of their work is fixed.  Step 1 and step 3 are the port's CUDA
 kernels (``kernels.ops.fused_herm`` with ``diag_fallback=False``,
 ``kernels.ops.batch_solve``), launched once per cell; steps 2 and 4 are
 ``distributed.collectives``.
+
+Two ways in:
+
+- ``core.als.als_train_binned(..., mesh=mesh)``, the port's normal path:
+  each side is a ``sparse.padded.BinnedShards`` (rows binned by global
+  degree, columns in p shards), whose blocks :func:`place_side` uploads
+  once to the cells that own them; :func:`mesh_half` runs one half-step
+  per bin and q-batch on them, and every card keeps a whole copy of both
+  factors (the solved slices are all-gathered), so a cell's block of the
+  fixed factor is a view.  Spans: ``obs/trace.py``'s ``mesh`` category.
+- :func:`make_su_als_fns` on global arrays in the :func:`shard_ratings`
+  layout (the reference's interface, the dry-run's and the out-of-core
+  waves'), staged on the home device and sliced to the cells each call.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import NamedTuple, Optional, Sequence
 
@@ -38,6 +52,10 @@ from repro_torch.backend import Mode
 from repro_torch.distributed import collectives as coll
 from repro_torch.kernels import ops as kops
 from repro_torch.launch.mesh import Mesh
+from repro_torch.obs.metrics import process_registry
+from repro_torch.obs.trace import current_tracer
+
+_SYNCS = process_registry().counter("host/syncs")
 
 
 def _tensor(a) -> torch.Tensor:
@@ -52,6 +70,12 @@ def col_sizes(mesh: Mesh) -> tuple[int, ...]:
     """Sizes of cuMF's p axes, fast -> slow: ``(n_model,)`` or
     ``(n_model, n_pod)``."""
     return tuple(mesh.shape[a] for a in ("model", "pod") if a in mesh.axis_names)
+
+
+def col_axes(mesh: Mesh) -> tuple[str, ...]:
+    """Names of cuMF's p axes, fast -> slow: ``("model",)`` or
+    ``("model", "pod")``."""
+    return tuple(a for a in ("model", "pod") if a in mesh.axis_names)
 
 
 def mesh_axes(mesh: Mesh) -> tuple[int, int]:
@@ -146,38 +170,60 @@ def su_als_update(
         A.append(Ac)
         B.append(Bc)
         cnt.append(c.to(torch.float32))
+    return _reduce_solve_gather(A, B, cnt, [t.device for t in theta_locs], col_sizes=col_sizes,
+                                col_axes=col_axes, scheme=scheme, mode=mode)
+
+
+def _reduce_solve_gather(A: list, B: list, cnt: list, devs: list, *, col_sizes, col_axes,
+                         scheme: str, mode: Optional[Mode], cards=None) -> list[torch.Tensor]:
+    """Steps 2-4 for one column group, its cells in shard order on
+    ``devs``: the partials ``A``, ``B`` and float ``cnt`` (lists, emptied
+    once reduced, so that they are freed) reduce-scattered, the owned
+    slices solved, and the slices all-gathered: each cell's rows of the
+    group, one tensor per distinct device.  Rows that do not split over
+    the cells are ragged (``collectives._chunks``).  ``cards``: the cards
+    of the ``su_als.reduce`` (``phase``, ``bytes``), ``su_als.solve`` and
+    ``su_als.gather`` spans."""
+    tracer = current_tracer()
+    two_phase = scheme == "two_phase" and len(col_sizes) > 1
+
+    def phase(name, nbytes):
+        return tracer.span_on(cards, "su_als.reduce", cat="mesh", phase=name, bytes=nbytes)
 
     # (2) parallel reduction of partial results — paper §4.2
-    two_phase = scheme == "two_phase" and len(col_sizes) > 1
-    if two_phase:
-        # Fig. 5b: scatter over the fast (model) cells of each pod first;
-        # only 1/n_fast-sized slices then cross the slow (pod) link
-        def reduce(parts):
-            return coll.two_level_reduce_scatter(parts, col_sizes[0], fast_axes=col_axes[:1],
-                                                 slow_axes=col_axes[1:])
-    else:
+    def reduce(parts):
+        out = parts[:]
+        parts.clear()
+        if two_phase:
+            # Fig. 5b: scatter over the fast (model) cells of each pod first;
+            # only 1/n_fast-sized slices then cross the slow (pod) link
+            return coll.two_level_reduce_scatter(out, col_sizes[0], fast_axes=col_axes[:1],
+                                                 slow_axes=col_axes[1:], ragged=True,
+                                                 phase=phase)
         # Fig. 5a: one reduce-scatter over the joint column cells
-        def reduce(parts):
-            return coll.reduce_scatter_flat(parts, axes=col_axes)
-    A_r, B_r, c_r = reduce(A), reduce(B), reduce(cnt)
-    del A, B, cnt
+        with phase("flat", (len(out) - 1) * out[0].numel() * out[0].element_size()):
+            return coll.reduce_scatter_flat(out, axes=col_axes, ragged=True)
+    reduced = list(zip(reduce(A), reduce(B), reduce(cnt)))
 
     # (3) singular guard for globally empty rows (x_u = 0), then the solve
     # of the owned slice — Alg. 3 line 17, p-way parallel
-    x_slices = []
-    for a, b, c in zip(A_r, B_r, c_r):
-        a.diagonal(dim1=-2, dim2=-1).add_((c <= 0).to(a.dtype)[:, None])
-        x_slices.append(kops.batch_solve(a, b, mode=mode))
-    del A_r, B_r
+    with tracer.span_on(cards, "su_als.solve", cat="mesh"):
+        x_slices = []
+        for dev, (a, b, c) in zip(devs, reduced):
+            with _on(dev):
+                a.diagonal(dim1=-2, dim2=-1).add_((c <= 0).to(a.dtype)[:, None])
+                x_slices.append(kops.batch_solve(a, b, mode=mode))
+        del reduced
 
     # (4) collect the solved slices — Alg. 3 line 19.  Two-phase: cell
-    # (pod s, model f) owns sub-slice s of slice f
-    if two_phase:
-        n_fast, n_slow = col_sizes[0], col_sizes[1]
-        order = [s * n_fast + f for f in range(n_fast) for s in range(n_slow)]
-        gathered = coll.all_gather([x_slices[c] for c in order], 0, axes=col_axes)
-        return [gathered[order.index(c)] for c in range(len(x_slices))]
-    return coll.all_gather(x_slices, 0, axes=col_axes)
+    # (pod s, model f) owns sub-slice s of chunk f
+    with tracer.span_on(cards, "su_als.gather", cat="mesh"):
+        if two_phase:
+            n_fast, n_slow = col_sizes[0], col_sizes[1]
+            order = [s * n_fast + f for f in range(n_fast) for s in range(n_slow)]
+            gathered = coll.all_gather([x_slices[c] for c in order], 0, axes=col_axes)
+            return [gathered[order.index(c)] for c in range(len(x_slices))]
+        return coll.all_gather(x_slices, 0, axes=col_axes)
 
 
 def _per_device(pieces: list[list[torch.Tensor]]) -> list[torch.Tensor]:
@@ -217,8 +263,7 @@ def _update(fixed: RowShards, idx, val, cnt, mesh: Mesh, lam: float, **kw) -> to
             [cell(idx, rows, slice(k * K, (k + 1) * K), dev) for k, dev in enumerate(devs)],
             [cell(val, rows, slice(k * K, (k + 1) * K), dev) for k, dev in enumerate(devs)],
             [cell(cnt, rows, k, dev) for k, dev in enumerate(devs)],
-            lam, col_sizes=col_sizes(mesh),
-            col_axes=tuple(a for a in ("model", "pod") if a in mesh.axis_names), **kw)
+            lam, col_sizes=col_sizes(mesh), col_axes=col_axes(mesh), **kw)
         out.append(x_loc[0][:m_loc].to(mesh.home))
     return torch.cat(out)
 
@@ -349,3 +394,203 @@ def shard_ratings(ell_parts, mesh: Mesh):
     cnt = np.transpose(ell_parts.cnt, (1, 0)).reshape(m, Pn)
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(mesh.home)
                  for a in (idx, val, cnt))
+
+
+# ---------------------------------------------------------------------------
+# The normal path: binned column shards resident on the cells
+# ---------------------------------------------------------------------------
+
+def _on(device: torch.device):
+    """The device's CUDA context made current (so that the ops' spans time
+    its stream), or nothing for a CPU cell."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+class MeshSide(NamedTuple):
+    """One side's ratings (R or R^T) resident on the cells of a mesh.
+
+    Cells are taken in group order, c = d * p + k for data shard d and
+    column shard k (:func:`column_groups`).  Bin b's rows split into
+    ``n_data`` parts of ``ceil(rows_b / n_data)`` rows (``bounds[b][d]``,
+    bin-local); ``blocks[b][c]`` is (idx, val, cnt) of part d's rows in
+    shard k on cell c's device, and ``rows[b][d]`` part d's row map on
+    each device of group d.  ``part_rows[d]`` holds every bin's part-d
+    rows and ``all_rows`` every part's in part order, on each device.
+    """
+    blocks: list
+    rows: list
+    bounds: list
+    part_rows: list
+    all_rows: dict
+    starts: tuple
+    m: int
+
+
+def place_side(layout, mesh: Mesh) -> MeshSide:
+    """Uploads a ``BinnedShards`` layout's blocks to the cells that own
+    them, once (a block already on its cell's device stays a view)."""
+    n_data, p = mesh_axes(mesh)
+    if layout.p != p:
+        raise ValueError(f"the layout has {layout.p} column shards, the mesh {p}")
+    groups = column_groups(mesh)
+    blocks, rows, bounds = [], [], []
+    for shards, rb in zip(layout.bins, layout.rows):
+        step = -(-rb.numel() // n_data)
+        bb = [(min(d * step, rb.numel()), min((d + 1) * step, rb.numel())) for d in range(n_data)]
+        blocks.append([tuple(t[lo:hi].to(dev) for t in shards[k])
+                       for (lo, hi), devs in zip(bb, groups) for k, dev in enumerate(devs)])
+        rows.append([{dev: rb[lo:hi].to(dev) for dev in dict.fromkeys(devs)}
+                     for (lo, hi), devs in zip(bb, groups)])
+        bounds.append(bb)
+    part_of = [torch.cat([rb[bb[d][0]:bb[d][1]] for rb, bb in zip(layout.rows, bounds)])
+               for d in range(n_data)]
+    part_rows = [{dev: part_of[d].to(dev) for dev in dict.fromkeys(devs)}
+                 for d, devs in enumerate(groups)]
+    all_rows = {dev: torch.cat(part_of).to(dev) for dev in mesh.distinct_devices}
+    return MeshSide(blocks, rows, bounds, part_rows, all_rows, layout.starts, layout.m)
+
+
+def replicate(t: torch.Tensor, mesh: Mesh) -> dict:
+    """A factor copied whole to every device of the mesh."""
+    return {dev: t.to(dev) for dev in mesh.distinct_devices}
+
+
+def mesh_batches(side: MeshSide, batch_rows: int) -> list[list[list]]:
+    """``[b][q][d]``: the bin-local (lo, hi) rows of data part d in q-batch
+    q of bin b (None where the part has no rows left), q-batches of
+    ``batch_rows`` rows (0: one batch), as ``core.als._row_batches``
+    cuts."""
+    out = []
+    for bb in side.bounds:
+        sizes = [hi - lo for lo, hi in bb]
+        top = max(max(sizes), 1)
+        step = batch_rows if batch_rows and batch_rows < top else top
+        out.append([[(lo + q * step, lo + min((q + 1) * step, n)) if q * step < n else None
+                     for (lo, _), n in zip(bb, sizes)]
+                    for q in range(-(-top // step))])
+    return out
+
+
+def mesh_nnz(side: MeshSide, batch_rows: int) -> list[list[list[int]]]:
+    """``[b][q][c]``: ratings of cell c in q-batch q of bin b (host reads,
+    for a tracer's args, once a run)."""
+    n_data = len(side.bounds[0])
+    p = len(side.blocks[0]) // n_data
+    out = []
+    for b, batches in enumerate(mesh_batches(side, batch_rows)):
+        cum = [[0] + cnt.long().cumsum(0).tolist() for _, _, cnt in side.blocks[b]]
+        per_batch = []
+        for parts in batches:
+            row = []
+            for c, counts in enumerate(cum):
+                part, base = parts[c // p], side.bounds[b][c // p][0]
+                row.append(counts[part[1] - base] - counts[part[0] - base] if part else 0)
+            per_batch.append(row)
+        out.append(per_batch)
+    return out
+
+
+def mesh_half(fixed: dict, side: MeshSide, mesh: Mesh, lam: float, *, f: int,
+              batch_rows: int = 0, mode: Optional[Mode] = None, nnz=None) -> dict:
+    """One SU-ALS half-step on resident shards: solves every row of ``side``
+    against ``fixed`` ({device: the whole fixed factor}), per bin and
+    q-batch of ``batch_rows`` rows: (1) each cell's partial Hermitian from
+    its shard and its block of the fixed factor, then for each column
+    group (2) the reduction, (3) the solve of the slice each cell owns,
+    with the singular guard for rows empty in every shard, (4) the
+    all-gather of the slices (:func:`_reduce_solve_gather`), and the rows
+    scattered into the new factor by the bin's row map on every device of
+    the group.  A mesh with a data axis then all-gathers each part's rows
+    over it (the reshard), so that every device holds the whole new
+    factor, returned as {device: factor}.  ``nnz`` (:func:`mesh_nnz`)
+    gives the ``su_als.bin`` spans' ratings."""
+    tracer = current_tracer()
+    groups = column_groups(mesh)
+    p = len(groups[0])
+    devs = [dev for g in groups for dev in g]
+    cards = mesh.distinct_devices
+    # the mesh's column axes decide the reduction: two-level over a pod
+    # axis, one-phase without one
+    kw = dict(col_sizes=col_sizes(mesh), col_axes=col_axes(mesh), scheme="two_phase",
+              mode=mode, cards=cards)
+    fixed_blocks = [fixed[dev][side.starts[c % p]:side.starts[c % p + 1]]
+                    for c, dev in enumerate(devs)]
+    out = {dev: torch.zeros((side.m, f), dtype=torch.float32, device=dev) for dev in cards}
+    for b, batches in enumerate(mesh_batches(side, batch_rows)):
+        for q, parts in enumerate(batches):
+            local = {}          # each live data part's rows of the batch, part-local
+            for d, part in enumerate(parts):
+                if part is not None:
+                    base = side.bounds[b][d][0]
+                    local[d] = (part[0] - base, part[1] - base)
+            with tracer.span_on(cards, "su_als.bin", cat="bin", bin=b, batch=q,
+                                rows=sum(hi - lo for lo, hi in local.values()),
+                                K=[blk[0].shape[1] for blk in side.blocks[b]],
+                                nnz=nnz[b][q] if nnz else None):
+                herm = {}
+                with tracer.span_on(cards, "su_als.herm", cat="mesh"):
+                    for d, (lo, hi) in local.items():
+                        A, B, C = [], [], []
+                        for c in range(d * p, (d + 1) * p):
+                            idx, val, cnt = (t[lo:hi] for t in side.blocks[b][c])
+                            with _on(devs[c]):
+                                Ac, Bc = kops.fused_herm(fixed_blocks[c], idx, val, cnt, lam,
+                                                         mode=mode, diag_fallback=False)
+                            A.append(Ac)
+                            B.append(Bc)
+                            C.append(cnt.to(torch.float32))
+                        herm[d] = (A, B, C)
+                solved = {d: _reduce_solve_gather(*herm.pop(d), devs[d * p:(d + 1) * p], **kw)
+                          for d in list(herm)}
+                with tracer.span_on(cards, "als.scatter", cat="scatter", bin=b):
+                    for d, (lo, hi) in local.items():
+                        for dev, x in zip(devs[d * p:(d + 1) * p], solved[d]):
+                            out[dev].index_copy_(0, side.rows[b][d][dev][lo:hi], x)
+    _reshard(out, side, mesh, cards)
+    return out
+
+
+def _reshard(out: dict, side: MeshSide, mesh: Mesh, cards) -> None:
+    """Completes every device's copy of a new factor: each column cell
+    all-gathers the rows the other data parts solved, over the data axis
+    (nothing moves on a mesh without one)."""
+    groups = column_groups(mesh)
+    n_data, p = len(groups), len(groups[0])
+    nbytes = p * (n_data - 1) * side.m * next(iter(out.values())).shape[1] * 4
+    with current_tracer().span_on(cards, "su_als.reshard", cat="mesh", bytes=nbytes):
+        if n_data == 1:
+            return
+        for k in range(p):
+            parts = [out[groups[d][k]].index_select(0, side.part_rows[d][groups[d][k]])
+                     for d in range(n_data)]
+            got = coll.all_gather(parts, 0, axes="data")
+            for d in range(n_data):
+                dev = groups[d][k]
+                out[dev].index_copy_(0, side.all_rows[dev], got[d])
+
+
+def rmse_shards(x: dict, theta: dict, side: MeshSide, mesh: Mesh,
+                mode: Optional[Mode] = None) -> float:
+    """Train RMSE over the ratings of ``side`` (R, resident on the cells):
+    each cell's ``sq_err`` over its shards into a float64 ``(sse, nnz)``
+    on its device, the cells' partials summed on the home device in
+    ascending cell order, and one host read."""
+    groups = column_groups(mesh)
+    p = len(groups[0])
+    accs = []
+    for c, dev in enumerate(dev for g in groups for dev in g):
+        d, k = divmod(c, p)
+        acc = torch.zeros(2, dtype=torch.float64, device=dev)
+        th = theta[dev][side.starts[k]:side.starts[k + 1]]
+        with _on(dev):
+            for b, blocks in enumerate(side.blocks):
+                idx, val, cnt = blocks[c]
+                kops.sq_err(x[dev], th, idx, val, cnt, rows=side.rows[b][d][dev], out=acc,
+                            mode=mode)
+        accs.append(acc)
+    total = accs[0].to(mesh.home, copy=True)
+    for acc in accs[1:]:
+        total += acc.to(mesh.home)
+    sse, nnz = total.tolist()
+    _SYNCS.inc()
+    return (sse / max(nnz, 1.0)) ** 0.5

@@ -29,6 +29,15 @@ result) and a :class:`phase` — takes its host duration as ``device_ms``.
 the exporter writes both.  torch is imported by the tracer, never by
 importing this module.
 
+A span over several cards (:meth:`Tracer.span_on`, the mesh drivers')
+records its event pair on the current stream of each card it names, and
+its ``device_ms`` runs from the earliest start to the latest end among
+them.  Events of different cards share no clock, so each card's are put
+on the host's clock through that card's latest anchor
+(:meth:`Tracer.anchor`: an event recorded where the card's stream is
+idle, beside the host time); a span begun on a card with no anchor yet
+takes the longest of its cards' own durations instead.
+
 Structure.  Each event has an ``id`` and a ``parent``: the span or
 :class:`phase` open on the same thread when it began (None at the top),
 so a reader rebuilds
@@ -80,8 +89,15 @@ category            what runs under it
                     ``als.half``, arg ``side``)
 ``bin``             one degree bin's q-batch of an in-core ALS half
                     (``als.bin``: ``bin``, ``batch``, ``rows``, ``K``,
-                    ``nnz``, ``fixed_rows``, ``f``)
+                    ``nnz``, ``fixed_rows``, ``f``; on a mesh
+                    ``su_als.bin``: ``K`` and ``nnz`` one per cell)
 ``scatter``         a bin's solved rows written back (``als.scatter``)
+``mesh``            a step of SU-ALS over the cells of a mesh, under
+                    ``su_als.bin``: ``su_als.herm`` (the partial
+                    Hermitians), ``su_als.reduce`` (``phase`` ``fast``,
+                    ``slow`` or ``flat``, ``bytes`` the cells receive),
+                    ``su_als.solve``, ``su_als.gather``; and
+                    ``su_als.reshard`` (``bytes``) at the end of a half
 ``set``             one diagonal set of an SGD epoch (``sgd.set``: ``set``,
                     ``live``, ``slots``, ``x_rows``, ``theta_rows``, ``g``,
                     ``mb``, ``f``)
@@ -129,13 +145,16 @@ class SpanEvent:
     tracer's span ``device_ms`` is its duration on the clock that
     ``clock`` names: ``"device"`` for a CUDA-event pair (None until
     :meth:`Tracer.resolve`), ``"host"`` where the span recorded no event
-    pair.  Both are None on a host-clock tracer."""
+    pair.  Both are None on a host-clock tracer.  A span over several
+    anchored cards (:meth:`Tracer.span_on`) also has ``device_t0``: its
+    earliest start on the host's clock, in ms of ``time.perf_counter``,
+    so that a reader can take the union of spans that overlap."""
 
     __slots__ = ("name", "cat", "ph", "ts", "dur", "tid", "args", "id", "parent",
-                 "device_ms", "clock")
+                 "device_ms", "clock", "device_t0")
 
     def __init__(self, name, cat, ph, ts, dur, tid, args, id=0, parent=None,
-                 device_ms=None, clock=None):
+                 device_ms=None, clock=None, device_t0=None):
         self.name = name
         self.cat = cat
         self.ph = ph
@@ -147,6 +166,7 @@ class SpanEvent:
         self.parent = parent
         self.device_ms = device_ms
         self.clock = clock
+        self.device_t0 = device_t0
 
     def __repr__(self):
         return (f"SpanEvent({self.name!r}, cat={self.cat!r}, ph={self.ph!r},"
@@ -183,6 +203,12 @@ class NullTracer:
     def span(self, name: str, cat: str = "", **args):
         return NOOP_SPAN
 
+    def span_on(self, devices, name: str, cat: str = "", **args):
+        return NOOP_SPAN
+
+    def anchor(self, devices) -> None:
+        return None
+
     def step_span(self, name: str, cat: str = "", **args):
         return NOOP_SPAN
 
@@ -204,14 +230,15 @@ NULL_TRACER = NullTracer()
 
 class _Span:
     __slots__ = ("_tracer", "_name", "_cat", "_args", "_step", "_t0", "_id",
-                 "_parent", "_ev0", "_annot", "_c0")
+                 "_parent", "_ev0", "_annot", "_c0", "_cards")
 
-    def __init__(self, tracer, name, cat, args, step=False):
+    def __init__(self, tracer, name, cat, args, step=False, cards=None):
         self._tracer = tracer
         self._name = name
         self._cat = cat
         self._args = args
         self._step = step
+        self._cards = cards
 
     def __enter__(self):
         tr = self._tracer
@@ -221,14 +248,14 @@ class _Span:
         stack.append(self._id)
         self._c0 = process_registry().snapshot()["counters"] if self._step else None
         self._annot = tr._annotate(self._name)
-        self._ev0 = None if self._step else tr._device_mark()
+        self._ev0 = None if self._step else tr._device_mark(self._cards)
         self._t0 = time.perf_counter()  # reprolint: disable=obs-routing
         return self
 
     def __exit__(self, *exc):
         t1 = time.perf_counter()  # reprolint: disable=obs-routing
         tr = self._tracer
-        ev1 = tr._device_mark() if self._ev0 is not None else None
+        ev1 = tr._device_mark(self._cards) if self._ev0 is not None else None
         if self._annot is not None:
             self._annot.__exit__(None, None, None)
         args = self._args
@@ -265,6 +292,7 @@ class Tracer:
         self._local = threading.local()
         self._ids = itertools.count(1)
         self._pending: list[tuple] = []
+        self._anchors: dict = {}
         # a host-clock tracer uses torch (for profiler annotations) only
         # where the process has imported it already
         if device_clock:
@@ -291,12 +319,21 @@ class Tracer:
         annot.__enter__()
         return annot
 
-    def _device_mark(self):
+    def _device_mark(self, cards=None):
         """A timing event recorded on the current stream, or None where no
-        CUDA work can run yet."""
+        CUDA work can run yet.  With ``cards`` (CUDA devices): a tuple of
+        (card, event on the card's current stream, the card's anchor)."""
         if not self._cuda or not self._torch.cuda.is_initialized():
             return None
-        ev = self._torch.cuda.Event(enable_timing=True)
+        cuda = self._torch.cuda
+        if cards is not None:
+            marks = []
+            for card in cards:
+                ev = cuda.Event(enable_timing=True)
+                ev.record(cuda.current_stream(card))
+                marks.append((card, ev, self._anchors.get(card)))
+            return tuple(marks) or None
+        ev = cuda.Event(enable_timing=True)
         ev.record()
         return ev
 
@@ -304,6 +341,34 @@ class Tracer:
     def span(self, name: str, cat: str = "", **args):
         """Context manager timing one span; ``args`` become span tags."""
         return _Span(self, name, cat, args)
+
+    def span_on(self, devices, name: str, cat: str = "", **args):
+        """:meth:`span` over the CUDA cards among ``devices`` (module
+        docstring): its device time runs from the earliest of its cards'
+        start events to the latest of their end events.  With no card
+        among them (None, or CPU devices) it is :meth:`span`."""
+        cards = [d for d in (devices or ()) if getattr(d, "type", None) == "cuda"]
+        if not cards:
+            return _Span(self, name, cat, args)
+        return _Span(self, name, cat, args, cards=cards)
+
+    def anchor(self, devices) -> None:
+        """Puts the CUDA cards among ``devices`` on the host's clock for the
+        spans that begin after it: on each card, waits for its current
+        stream, records an event there and notes the host time.  Call it
+        where those streams have little or nothing left to run (after a
+        host read that waited for them); it waits for the rest."""
+        if not self._cuda or not self._torch.cuda.is_initialized():
+            return
+        cuda = self._torch.cuda
+        for card in devices or ():
+            if getattr(card, "type", None) != "cuda":
+                continue
+            stream = cuda.current_stream(card)
+            stream.synchronize()
+            ev = cuda.Event(enable_timing=True)
+            ev.record(stream)
+            self._anchors[card] = (ev, time.perf_counter())  # reprolint: disable=obs-routing
 
     def step_span(self, name: str, cat: str = "", **args):
         """:meth:`span` of one driver step: its ``counters`` arg holds the
@@ -357,6 +422,9 @@ class Tracer:
         with self._lock:
             pending, self._pending = self._pending, []
         for ev, ev0, ev1 in pending:
+            if isinstance(ev0, tuple):
+                ev.device_t0, ev.device_ms = _cards_span(ev0, ev1)
+                continue
             ev1.synchronize()
             ev.device_ms = ev0.elapsed_time(ev1)
 
@@ -368,6 +436,20 @@ class Tracer:
         with self._lock:
             return [e for e in self.events
                     if e.ph == "X" and (cat is None or e.cat == cat)]
+
+
+def _cards_span(starts, ends) -> tuple:
+    """``(device_t0, device_ms)`` of a span over several cards: its
+    earliest start and, to its latest end, its milliseconds on the host's
+    clock, through each card's anchor at the span's start; where a card
+    had none, ``(None, the longest of the cards' own durations)``."""
+    for _, e, _ in ends:
+        e.synchronize()
+    if all(anchor is not None for _, _, anchor in starts):
+        t0 = min(a[1] * 1e3 + a[0].elapsed_time(s) for _, s, a in starts)
+        t1 = max(a[1] * 1e3 + a[0].elapsed_time(e) for (_, _, a), (_, e, _) in zip(starts, ends))
+        return t0, t1 - t0
+    return None, max(s.elapsed_time(e) for (_, s, _), (_, e, _) in zip(starts, ends))
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,13 @@ unbinned layouts are numerically identical.
 :func:`bin_rows` and :func:`pad_csr_fast` run in ``layout.*`` spans of the
 current tracer (host clock: the work is synchronous numpy), one per call
 and one per bin fill.
+
+:class:`BinnedShards` is the mesh's layout (SU-ALS, paper eq. 5-7): the
+rows binned by their global degree exactly as :func:`bin_rows` bins them,
+each bin's columns split into p contiguous shards, and each shard of each
+bin padded to its own largest local degree.  :func:`bin_col_shards`
+builds it in torch, on any device, from the CSR, in a
+``layout.col_shards`` span.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ import dataclasses
 from typing import Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.obs.trace import current_tracer
 
@@ -550,3 +558,117 @@ def stack_binned_csr(csrs, K_loc: int, n_bins: int, k_multiple: int = 8,
         val_out[row, slot] = vals[take]
 
     return _stack_bins(cnt, K_loc, fill, n_bins, k_multiple, p, caps)
+
+
+# ---------------------------------------------------------------------------
+# Degree-binned column shards (the mesh's layout: SU-ALS, paper eq. 5-7)
+# ---------------------------------------------------------------------------
+
+def shard_starts(n_cols: int, p: int) -> tuple[int, ...]:
+    """The ``p + 1`` boundaries of ``p`` contiguous column shards of
+    ``ceil(n_cols / p)`` columns each, the last one short."""
+    if not 0 < p <= max(n_cols, 1):
+        raise ValueError(f"{n_cols} columns do not split over {p} shards")
+    width = -(-n_cols // p)
+    return tuple(min(k * width, n_cols) for k in range(p + 1))
+
+
+@dataclasses.dataclass
+class BinnedShards:
+    """Rows of one sparse matrix in degree bins, each bin's columns split
+    into ``p`` contiguous shards.
+
+    ``bins[b][k]`` is ``(idx, val, cnt)``: tensors ``[rows_b, K_bk]``
+    int32, ``[rows_b, K_bk]`` float32 and ``[rows_b]`` int32 of shard k's
+    ratings of bin b's rows, columns rebased to the shard (column
+    ``starts[k] + idx``), in the order each row holds them, padded to the
+    shard's own largest count in the bin; a row with no rating in the
+    shard keeps its place with count 0.  ``rows[b]`` (int64, ascending)
+    maps bin-local rows to the matrix's rows, as :class:`BinnedELL`'s.
+    """
+
+    bins: Tuple[Tuple[Tuple[torch.Tensor, torch.Tensor, torch.Tensor], ...], ...]
+    rows: Tuple[torch.Tensor, ...]
+    starts: Tuple[int, ...]        # p + 1 column boundaries (shard_starts)
+    n_cols: int
+    m: int
+
+    @property
+    def p(self) -> int:
+        return len(self.starts) - 1
+
+    @property
+    def K_table(self) -> Tuple[Tuple[int, ...], ...]:
+        """``K_table[b][k]``: the padded width of shard k of bin b."""
+        return tuple(tuple(int(s[0].shape[1]) for s in shards) for shards in self.bins)
+
+    @property
+    def nnz(self) -> int:
+        return sum(int(s[2].sum()) for shards in self.bins for s in shards)
+
+    def to(self, device) -> "BinnedShards":
+        """The layout with every tensor on ``device``."""
+        return BinnedShards(
+            bins=tuple(tuple(tuple(t.to(device) for t in s) for s in shards)
+                       for shards in self.bins),
+            rows=tuple(r.to(device) for r in self.rows), starts=self.starts,
+            n_cols=self.n_cols, m=self.m)
+
+
+def bin_col_shards(ptr, cols, vals, n_cols: int, p: int, n_bins: int = 1,
+                   k_multiple: int = 8, device=None) -> BinnedShards:
+    """CSR (numpy arrays or tensors) -> :class:`BinnedShards` with ``p``
+    column shards (:func:`shard_starts`), built on ``device`` (default:
+    the CPU) with no loop over rows: rows binned by :func:`bin_rows`' rule
+    (:func:`bin_caps` of the largest degree, a row to the first cap that
+    covers its degree), the ratings grouped by (bin, shard) with one
+    stable sort, and each group placed at its row's next slot.  Runs in a
+    ``layout.col_shards`` span of the current tracer."""
+    dev = torch.device("cpu" if device is None else device)
+    starts = shard_starts(n_cols, p)
+    width = max(starts[1] - starts[0], 1)
+    ptr = torch.as_tensor(ptr).to(dev, torch.int64)
+    m, nnz = ptr.shape[0] - 1, int(ptr[-1])
+    tracer = current_tracer()
+    with tracer.span("layout.col_shards", cat="layout", rows=m, nnz=nnz, p=p, n_bins=n_bins):
+        cols = torch.as_tensor(cols).to(dev)
+        vals = torch.as_tensor(vals).to(dev, torch.float32)
+        cnt = ptr.diff()
+        caps = bin_caps(int(cnt.max()) if m else 0, n_bins, k_multiple)
+        assign = torch.searchsorted(torch.tensor(caps, dtype=torch.int64, device=dev),
+                                    cnt.clamp(min=1))
+        row_of = torch.repeat_interleave(torch.arange(m, device=dev), cnt, output_size=nnz)
+        group = assign[row_of] * p + torch.div(cols, width, rounding_mode="floor").long()
+        order = torch.sort(group, stable=True).indices
+        ends = torch.bincount(group, minlength=len(caps) * p).cumsum(0).tolist()
+        del group
+        local = torch.zeros(m, dtype=torch.int64, device=dev)
+        bins, rows = [], []
+        for b in range(len(caps)):
+            rb = torch.nonzero(assign == b).flatten()
+            if rb.numel() == 0:
+                continue
+            local[rb] = torch.arange(rb.numel(), device=dev)
+            shards = []
+            for k in range(p):
+                g = b * p + k
+                take = order[(ends[g - 1] if g else 0):ends[g]]
+                r = local[row_of[take]]
+                cnt_bk = torch.bincount(r, minlength=rb.numel())
+                K = round_k(int(cnt_bk.max()), k_multiple)
+                pos = torch.arange(take.numel(), device=dev) - (cnt_bk.cumsum(0) - cnt_bk)[r]
+                idx = torch.zeros((rb.numel(), K), dtype=torch.int32, device=dev)
+                val = torch.zeros((rb.numel(), K), dtype=torch.float32, device=dev)
+                idx[r, pos] = (cols[take] - starts[k]).to(torch.int32)
+                val[r, pos] = vals[take]
+                shards.append((idx, val, cnt_bk.to(torch.int32)))
+            bins.append(tuple(shards))
+            rows.append(rb)
+        if not bins:       # m == 0: one empty bin, as bin_rows keeps
+            empty = (torch.zeros((0, k_multiple), dtype=torch.int32, device=dev),
+                     torch.zeros((0, k_multiple), dtype=torch.float32, device=dev),
+                     torch.zeros(0, dtype=torch.int32, device=dev))
+            bins.append(tuple(empty for _ in range(p)))
+            rows.append(torch.zeros(0, dtype=torch.int64, device=dev))
+    return BinnedShards(bins=tuple(bins), rows=tuple(rows), starts=starts,
+                        n_cols=n_cols, m=m)

@@ -347,14 +347,14 @@ def test_stack_binned_parts_matches_reference(n_bins, p):
 # the reference's own SU-ALS on 8 forced host devices
 # ---------------------------------------------------------------------------
 
-@pytest.mark.mesh
-def test_su_als_matches_reference_mesh_run(problem, tmp_path):
-    """The reference's ``make_su_als_fns`` on 8 forced host devices
-    (tests/test_distributed.py's ``run_script``) and the port's on 8 CPU
-    cells, one-phase and two-phase, from the same state: within 2e-3."""
+@pytest.fixture(scope="module")
+def reference_mesh_run(tmp_path_factory):
+    """The reference's ``make_su_als_fns`` iteration on 8 forced host
+    devices (tests/test_distributed.py's ``run_script``), one-phase and
+    two-phase, on both meshes, from the reference's initial state."""
     from test_distributed import COMMON, run_script
 
-    out = tmp_path / "ref.npz"
+    out = tmp_path_factory.mktemp("reference_mesh_run") / "ref.npz"
     run_script(COMMON + f"""
 r_tr, r_tr_T, m, n = make_problem(4)
 cfg = als_mod.AlsConfig(f=16, lam=0.05, iters=1, mode='ref')
@@ -373,7 +373,16 @@ for name, shape, axes in (('2x4', (2, 4), ('data', 'model')),
 np.savez({str(out)!r}, **res)
 print('OK')
 """)
-    ref = np.load(out)
+    with np.load(out) as ref:
+        return dict(ref)
+
+
+@pytest.mark.mesh
+def test_su_als_matches_reference_mesh_run(problem, reference_mesh_run):
+    """The reference's ``make_su_als_fns`` on 8 forced host devices and the
+    port's on 8 CPU cells, one-phase and two-phase, from the same state:
+    within 2e-3."""
+    ref = reference_mesh_run
     _, _, init, _ = problem
     report = {}
     for name in MESHES:
@@ -386,3 +395,40 @@ print('OK')
             dt = float(np.abs(t2.numpy() - ref[name + scheme + "_t"]).max())
             report[name + scheme] = (dx, dt)
     assert all(max(v) <= SU_TOL for v in report.values()), json.dumps(report)
+
+
+def _csr_of(ell):
+    """A ``PaddedELL``'s ratings as a CSR triple (ptr, cols, vals)."""
+    live = np.arange(ell.idx.shape[1])[None, :] < ell.cnt[:, None]
+    ptr = np.zeros(ell.idx.shape[0] + 1, np.int64)
+    np.cumsum(ell.cnt, out=ptr[1:])
+    return ptr, ell.idx[live].astype(np.int32), ell.val[live].astype(np.float32)
+
+
+@pytest.mark.mesh
+@pytest.mark.parametrize("batch_rows", [0, 100])
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+def test_mesh_train_binned_matches_reference_mesh_run(problem, reference_mesh_run, mesh_name,
+                                                      batch_rows):
+    """The port's normal SU-ALS path, ``als_train_binned(..., mesh=)`` on
+    binned column shards resident on 8 CPU cells, against the reference's
+    ``make_su_als_fns`` iteration on the same mesh shape (one-phase on the
+    mesh without a pod axis, two-phase on the one with), from the same
+    state: within the reference's own SU-ALS tolerance, 2e-3 (measured
+    below 3e-6).  ``batch_rows`` 0 takes each bin in one q-batch, 100 in
+    several, the last short."""
+    r_tr, r_tr_T, init, _ = problem
+    mesh = _cpu_mesh(mesh_name)
+    p = su_als.mesh_axes(mesh)[1]
+    rs = p_padded.bin_col_shards(*_csr_of(r_tr), r_tr.n_cols, p, n_bins=4)
+    rts = p_padded.bin_col_shards(*_csr_of(r_tr_T), r_tr_T.n_cols, p, n_bins=4)
+    cfg = p_als.AlsConfig(f=16, lam=0.05, iters=1, batch_rows=batch_rows, device="cpu",
+                          mode="kernel")
+    start = p_als.AlsState(x=torch.tensor(init[0]), theta=torch.tensor(init[1]),
+                           iteration=0)
+    state, hist = p_als.als_train_binned(rs, rts, cfg, init=start, mesh=mesh)
+    scheme = "two_phase" if "pod" in mesh.axis_names else "one_phase"
+    dx = float(np.abs(state.x.numpy() - reference_mesh_run[mesh_name + scheme + "_x"]).max())
+    dt = float(np.abs(state.theta.numpy() - reference_mesh_run[mesh_name + scheme + "_t"]).max())
+    assert max(dx, dt) <= SU_TOL, (dx, dt)
+    assert state.iteration == 1 and len(hist) == 1
