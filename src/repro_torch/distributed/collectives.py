@@ -14,7 +14,11 @@ cells' tensors as a list (cell ``c`` of a group at position ``c``; for a
 two-level group, position ``s * n_fast + f`` for slow index s and fast
 index f), sums in ascending cell order, and leaves each owner's slice on
 that owner's device.  A slice that crosses cards is a peer copy; cells
-that share a card exchange views.
+that share a card exchange views.  A caller that gives up its parts
+(``donate``, as SU-ALS does with its partial Hermitians) has each owner's
+slice built in place in its own part, and the slices that cross cards
+streamed in slabs over copy streams, every direction at once
+(:func:`_fold_donated`); the sums are the same, bit for bit.
 
 Bytes over the slow link:  flat = (P-1)/P * |T|  per device,
 hierarchical = |T| / p_fast per device — a p_fast-times reduction.
@@ -34,7 +38,9 @@ registry (``obs.metrics``): ``collective/<kind>/calls`` and
 ``all_reduce``, ...), the bytes each cell receives from the others by the
 same ring formulas over the cells that took part, summed over those cells.
 A reduce-scatter of a ``|T|``-byte tensor over g cells counts ``(g - 1)
-|T|``: each cell receives every other cell's part of its own chunk.
+|T|``: each cell receives every other cell's part of its own chunk.  Of
+those, ``collective/reduce_scatter/streamed_bytes`` counts the bytes that
+the copy streams of a donated reduction delivered.
 
 Autograd runs through :func:`all_gather` and :func:`all_reduce` as they
 are (``torch.cat``, ``Tensor.to`` and the in-place adds into
@@ -48,6 +54,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import math
 from typing import Mapping, Optional, Sequence
 
@@ -218,6 +225,163 @@ def _sum_to(pieces: Sequence[torch.Tensor], device: torch.device) -> torch.Tenso
     return acc
 
 
+def _fold_into(pieces: Sequence[torch.Tensor], k: int) -> torch.Tensor:
+    """``pieces[k]`` made, in place, the left fold of ``pieces`` in list
+    order, bit for bit :func:`_sum_to`'s (a float sum of two terms is the
+    same either way round): the terms before it summed first (one term
+    as it is, more in a staging buffer), then each later one added.  The
+    other pieces are left as they were."""
+    own, dev = pieces[k], pieces[k].device
+    if k:
+        own += pieces[0].to(dev) if k == 1 else _sum_to(pieces[:k], dev)
+    for piece in pieces[k + 1:]:
+        own += piece.to(dev)
+    return own
+
+
+#: bytes of one slab of a chunk streamed between cards: the owner adds
+#: slab i while slab i + 1 lands.  At NVLink's rate a slab keeps a copy
+#: engine busy for about 0.6 ms, long beside the host's cost of issuing
+#: it; the last slab's add, about 0.3 ms, is what a phase does not hide.
+SLAB_BYTES = 256 << 20
+#: slabs of each peer's chunk an owner's receive buffer holds
+SLAB_DEPTH = 2
+
+#: the copy streams of each direction between two cards, made once a
+#: process (``torch.cuda.Stream`` hands out a fixed pool in turn, so
+#: streams made a call would come round to other work's)
+_LINKS: dict = {}
+
+
+def _link(src: torch.device, dst: torch.device) -> tuple:
+    """The copy streams of the direction ``src`` -> ``dst``: the copy runs
+    on the first, on ``src``; the second, on ``dst``, runs nothing and is
+    current there while a copy is issued.  PyTorch fences a copy between
+    cards against both cards' current streams, so these two tie each
+    direction to no other work of either card."""
+    key = (src.index, dst.index)
+    if key not in _LINKS:
+        _LINKS[key] = (torch.cuda.Stream(src), torch.cuda.Stream(dst))
+    return _LINKS[key]
+
+
+def _fold_donated(jobs: Sequence[tuple], axis: int) -> list[torch.Tensor]:
+    """Folds each job ``(pieces, k)`` into its owner's chunk ``pieces[k]``
+    in place (:func:`_fold_into`) and returns the owners' chunks: where
+    every piece is on the owner's device, in one go; where some lie on
+    other CUDA cards, streamed along ``axis`` (:func:`_stream_folds`)."""
+    streamed = []
+    for pieces, k in jobs:
+        own = pieces[k]
+        far = [j for j, p in enumerate(pieces)
+               if p.device != own.device and p.device.type == own.device.type == "cuda"]
+        if far:
+            streamed.append(_Fold(pieces, k, far, axis))
+        else:
+            _fold_into(pieces, k)
+    if streamed:
+        _stream_folds(streamed, axis)
+    return [pieces[k] for pieces, k in jobs]
+
+
+def _head(t: torch.Tensor, axis: int, m: int) -> torch.Tensor:
+    """The first ``m`` rows of ``t`` along ``axis`` (``t`` itself if all)."""
+    return t if t.shape[axis] == m else t.narrow(axis, 0, m)
+
+
+class _Fold:
+    """One owner's chunk ``pieces[k]`` in :func:`_stream_folds`: the
+    positions ``far`` of the pieces on other cards, its slabs (start,
+    rows) of :data:`SLAB_BYTES` along the axis, and for each of the
+    :data:`SLAB_DEPTH` slots of its receive buffer a slab of each far
+    piece, the events of their copies and the event of the fold that
+    last read the slot."""
+
+    def __init__(self, pieces: Sequence[torch.Tensor], k: int, far: list, axis: int):
+        own = pieces[k]
+        self.pieces, self.k, self.far = pieces, k, far
+        n = own.shape[axis]
+        step = max(1, SLAB_BYTES * n // max(_nbytes(own), 1))
+        self.slabs = [(lo, min(step, n - lo)) for lo in range(0, n, step)]
+        shape = list(own.shape)
+        shape[axis] = min(step, n)
+        bufs = own.new_empty((SLAB_DEPTH, len(far), *shape)).unbind(0) if n else ()
+        self.slots = [buf.unbind(0) for buf in bufs]
+        self.landed = [[torch.cuda.Event() for _ in far] for _ in bufs]
+        self.freed = [torch.cuda.Event() for _ in bufs]
+
+
+def _stream_folds(folds: Sequence[_Fold], axis: int) -> None:
+    """The folds whose pieces lie on other cards, slab by slab: a far
+    piece's slabs come over its direction's copy streams (:func:`_link`)
+    into the owner's receive buffer, and the owner folds slab i on its
+    current stream while slab i + 1 lands.  Every fold's copies of a slab
+    are issued before the folds of the slab before it, so both directions
+    of every pair move at once.  Only events order the work: a copy waits
+    for its sender's and its owner's current streams as they were once
+    the buffers were made, and for the fold that last read its slot (an
+    event not yet recorded is no wait); a fold waits for its slabs to
+    land.  Before it returns, both cards' current streams of every
+    direction wait for its copies, so the pieces' memory, held until
+    then, is not handed on while a copy reads it."""
+    links = {(f.pieces[j].device, f.pieces[f.k].device) for f in folds for j in f.far}
+    cur = {}
+    for dev in {d for link in links for d in link}:
+        cur[dev] = torch.cuda.current_stream(dev)
+        ready = torch.cuda.Event()
+        ready.record(cur[dev])
+        for src, dst in links:
+            if dev in (src, dst):
+                _link(src, dst)[0].wait_event(ready)
+
+    def receive(fold: _Fold, i: int) -> None:
+        lo, m = fold.slabs[i]
+        dst, slot = fold.pieces[fold.k].device, i % SLAB_DEPTH
+        for r, j in enumerate(fold.far):
+            src = fold.pieces[j]
+            send, recv = _link(src.device, dst)
+            send.wait_event(fold.freed[slot])
+            # each card's copy stream current while the copy is issued
+            torch.cuda.set_stream(send)
+            torch.cuda.set_stream(recv)
+            _head(fold.slots[slot][r], axis, m).copy_(src.narrow(axis, lo, m))
+            torch.cuda.set_stream(cur[dst])
+            torch.cuda.set_stream(cur[src.device])
+            fold.landed[slot][r].record(send)
+
+    def fold_slab(fold: _Fold, i: int) -> None:
+        lo, m = fold.slabs[i]
+        slot = i % SLAB_DEPTH
+        stream = cur[fold.pieces[fold.k].device]
+        terms = [p.narrow(axis, lo, m) if j not in fold.far else None
+                 for j, p in enumerate(fold.pieces)]
+        for r, j in enumerate(fold.far):
+            stream.wait_event(fold.landed[slot][r])
+            terms[j] = _head(fold.slots[slot][r], axis, m)
+        _fold_into(terms, fold.k)
+        fold.freed[slot].record(stream)
+
+    ahead = SLAB_DEPTH - 1
+    # set_stream makes the stream's card the current device: restore it
+    with torch.cuda.device(torch.cuda.current_device()):
+        for f in folds:
+            for i in range(min(ahead, len(f.slabs))):
+                receive(f, i)
+        for i in range(max(len(f.slabs) for f in folds)):
+            for f in folds:
+                if i + ahead < len(f.slabs):
+                    receive(f, i + ahead)
+            for f in folds:
+                if i < len(f.slabs):
+                    fold_slab(f, i)
+    for src, dst in links:
+        send = _link(src, dst)[0]
+        cur[src].wait_stream(send)
+        cur[dst].wait_stream(send)
+    process_registry().counter("collective/reduce_scatter/streamed_bytes").inc(
+        sum(len(f.far) * _nbytes(f.pieces[f.k]) for f in folds))
+
+
 def _chunks(size: int, n_cells: int, ragged: bool) -> list[tuple[int, int]]:
     """(start, length) of each cell's chunk of ``size`` rows: equal chunks,
     or with ``ragged`` chunks of ``ceil(size / n_cells)`` rows, the last
@@ -229,16 +393,35 @@ def _chunks(size: int, n_cells: int, ragged: bool) -> list[tuple[int, int]]:
 
 
 def reduce_scatter_flat(parts: Sequence[torch.Tensor], scatter_axis: int = 0, axes=None,
-                        *, ragged: bool = False) -> list[torch.Tensor]:
+                        *, ragged: bool = False, donate: bool = False) -> list[torch.Tensor]:
     """One-phase parallel reduction (Fig. 5a): cell c receives chunk c of
     the sum of all cells' tensors, on its own device.  ``axes``: the mesh
     axes the cells span (for :func:`counting`).  The axis must split evenly
-    over the cells unless ``ragged`` (:func:`_chunks`)."""
-    n_cells = len(parts)
-    chunks = _chunks(parts[0].shape[scatter_axis], n_cells, ragged)
-    note("reduce-scatter", _nbytes(parts[0]) / n_cells, axes, n_cells)
-    return [_sum_to([p.narrow(scatter_axis, lo, n) for p in parts], owner.device)
-            for (lo, n), owner in zip(chunks, parts)]
+    over the cells unless ``ragged`` (:func:`_chunks`).  ``donate``: the
+    parts are the caller's to give up (distinct tensors, read by nothing
+    else until this returns); cell c's chunk of the sum is then built in
+    place in its own part, which it returns a view of, streamed between
+    cards (:func:`_fold_donated`), bit for bit the sum made without."""
+    return _reduce_scatter([parts], scatter_axis, axes, ragged, donate)[0]
+
+
+def _reduce_scatter(groups: Sequence[Sequence[torch.Tensor]], scatter_axis: int, axes,
+                    ragged: bool, donate: bool) -> list[list[torch.Tensor]]:
+    """:func:`reduce_scatter_flat` of each group; donated groups' chunks
+    folded together, so that every group's copies move at once."""
+    jobs = []
+    for parts in groups:
+        n_cells = len(parts)
+        chunks = _chunks(parts[0].shape[scatter_axis], n_cells, ragged)
+        note("reduce-scatter", _nbytes(parts[0]) / n_cells, axes, n_cells)
+        jobs += [([p.narrow(scatter_axis, lo, n) for p in parts], c)
+                 for c, (lo, n) in enumerate(chunks)]
+    if donate:
+        out = _fold_donated(jobs, scatter_axis)
+    else:
+        out = [_sum_to(pieces, pieces[c].device) for pieces, c in jobs]
+    ends = itertools.accumulate(len(parts) for parts in groups)
+    return [out[end - len(parts):end] for parts, end in zip(groups, ends)]
 
 
 def hierarchical_reduce_scatter(parts: Sequence[torch.Tensor], n_fast: int,
@@ -270,7 +453,7 @@ def hierarchical_reduce_scatter(parts: Sequence[torch.Tensor], n_fast: int,
 def two_level_reduce_scatter(parts: Sequence[torch.Tensor], n_fast: int,
                              scatter_axis: int = 0, fast_axes=None,
                              slow_axes=None, *, ragged: bool = False,
-                             phase=None) -> list[torch.Tensor]:
+                             phase=None, donate: bool = False) -> list[torch.Tensor]:
     """Two-phase reduce-scatter down to 1/P of the total a cell, the
     reduction SU-ALS runs (Fig. 5b with a scattered slow phase): reduce-
     scatter within each fast group, then reduce-scatter each fast chunk
@@ -282,19 +465,20 @@ def two_level_reduce_scatter(parts: Sequence[torch.Tensor], n_fast: int,
     :func:`reduce_scatter_flat`, in both phases.  ``phase(name, nbytes)``,
     where given, is the context each phase runs in (``"fast"``, then
     ``"slow"``), with the bytes the phase's cells receive, summed over
-    them."""
+    them; a donated phase's copies have all landed in it.  ``donate`` as
+    in :func:`reduce_scatter_flat`: cell (s, f)'s sub-slice is built in
+    place in its own part, the slow phase folding into the fast phase's
+    chunks, every group of a phase at once."""
     if len(parts) % n_fast:
         raise ValueError(f"{len(parts)} cells do not form groups of {n_fast}")
     n_slow = len(parts) // n_fast
     total = _nbytes(parts[0])
     with contextlib.nullcontext() if phase is None else phase("fast", n_slow * (n_fast - 1) * total):
-        fast = [reduce_scatter_flat(parts[s * n_fast:(s + 1) * n_fast], scatter_axis,
-                                    fast_axes, ragged=ragged)
-                for s in range(n_slow)]
+        fast = _reduce_scatter([parts[s * n_fast:(s + 1) * n_fast] for s in range(n_slow)],
+                               scatter_axis, fast_axes, ragged, donate)
     with contextlib.nullcontext() if phase is None else phase("slow", (n_slow - 1) * total):
-        slow = [reduce_scatter_flat([fast[s][f] for s in range(n_slow)], scatter_axis,
-                                    slow_axes, ragged=ragged)
-                for f in range(n_fast)]
+        slow = _reduce_scatter([[fast[s][f] for s in range(n_slow)] for f in range(n_fast)],
+                               scatter_axis, slow_axes, ragged, donate)
     return [slow[f][s] for s in range(n_slow) for f in range(n_fast)]
 
 

@@ -20,11 +20,16 @@ One update-X step, per data shard and for each cell of its column group
   4. all-gather of the solved slices                            (L19)
 
 The reference runs this under ``shard_map``; here each step is a loop over
-the cells in ascending order, on one stream, so while cells share a card
-the order of their work is fixed.  Step 1 and step 3 are the port's CUDA
-kernels (``kernels.ops.fused_herm`` with ``diag_fallback=False``,
-``kernels.ops.batch_solve``), launched once per cell; steps 2 and 4 are
-``distributed.collectives``.
+the cells in ascending order, each cell's work on its card's current
+stream, so while cells share a card the order of their work is fixed.
+Step 1 and step 3 are the port's CUDA kernels (``kernels.ops.fused_herm``
+with ``diag_fallback=False``, ``kernels.ops.batch_solve``), launched once
+per cell; steps 2 and 4 are ``distributed.collectives``.  Step 2 is given
+the partials (``donate``): each cell's slice of the sum is built in its
+own partial, and the slices that cross cards move in slabs on copy
+streams of their own, both directions of a pair at once, ordered against
+the cards' current streams by events alone and joined back into them
+before each phase of the reduction ends.
 
 Two ways in:
 
@@ -169,7 +174,7 @@ def su_als_update(
         Ac, Bc = kops.fused_herm(t, i, v, c, lam, mode=mode, diag_fallback=False)
         A.append(Ac)
         B.append(Bc)
-        cnt.append(c.to(torch.float32))
+        cnt.append(c.to(torch.float32, copy=True))
     return _reduce_solve_gather(A, B, cnt, [t.device for t in theta_locs], col_sizes=col_sizes,
                                 col_axes=col_axes, scheme=scheme, mode=mode)
 
@@ -177,8 +182,9 @@ def su_als_update(
 def _reduce_solve_gather(A: list, B: list, cnt: list, devs: list, *, col_sizes, col_axes,
                          scheme: str, mode: Optional[Mode], cards=None) -> list[torch.Tensor]:
     """Steps 2-4 for one column group, its cells in shard order on
-    ``devs``: the partials ``A``, ``B`` and float ``cnt`` (lists, emptied
-    once reduced, so that they are freed) reduce-scattered, the owned
+    ``devs``: the partials ``A``, ``B`` and float ``cnt`` (lists of
+    tensors this step owns, emptied once given to the reduction, which
+    builds each cell's slice in its own partial) reduce-scattered, the owned
     slices solved, and the slices all-gathered: each cell's rows of the
     group, one tensor per distinct device.  Rows that do not split over
     the cells are ragged (``collectives._chunks``).  ``cards``: the cards
@@ -199,10 +205,10 @@ def _reduce_solve_gather(A: list, B: list, cnt: list, devs: list, *, col_sizes, 
             # only 1/n_fast-sized slices then cross the slow (pod) link
             return coll.two_level_reduce_scatter(out, col_sizes[0], fast_axes=col_axes[:1],
                                                  slow_axes=col_axes[1:], ragged=True,
-                                                 phase=phase)
+                                                 phase=phase, donate=True)
         # Fig. 5a: one reduce-scatter over the joint column cells
         with phase("flat", (len(out) - 1) * out[0].numel() * out[0].element_size()):
-            return coll.reduce_scatter_flat(out, axes=col_axes, ragged=True)
+            return coll.reduce_scatter_flat(out, axes=col_axes, ragged=True, donate=True)
     reduced = list(zip(reduce(A), reduce(B), reduce(cnt)))
 
     # (3) singular guard for globally empty rows (x_u = 0), then the solve

@@ -8,6 +8,7 @@ reduce-scatter 1e-4 (tests/test_distributed.py:206-207), SU-ALS against
 the single-device ALS iteration 2e-3 (:73-74, :92-93) and ``row_block``
 1e-4 (:110-111).  Problem: tests/test_distributed.py's COMMON problem.
 """
+import contextlib
 import json
 
 import numpy as np
@@ -191,6 +192,88 @@ def test_reduce_scatter_sums_in_ascending_cell_order():
         for q in parts[1:]:
             want += q[2 * c:2 * c + 2]
         assert torch.equal(out[c], want)
+
+
+def _scaled_parts(n, rows, seed, cols=3):
+    """n cells' tensors of very different scales, so that another order of
+    the sum would change its bits."""
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((rows, cols)).astype(np.float32) * 10.0 ** k)
+            for k in range(n)]
+
+
+def _same_bits(a, b) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("g,k", [(g, k) for g in (2, 3, 4) for k in range(g)])
+def test_donated_fold_is_sum_to_bit_for_bit(g, k):
+    """The owner at position k folds the others into its own piece in
+    place: the same bits as ``_sum_to``'s left fold, and the other pieces
+    untouched."""
+    pieces = _scaled_parts(g, 7, seed=10 * g + k)
+    others = [p.clone() for p in pieces]
+    want = p_coll._sum_to(pieces, pieces[k].device)
+    got = p_coll._fold_into(pieces, k)
+    assert got is pieces[k] and _same_bits(got, want)
+    assert all(_same_bits(pieces[j], others[j]) for j in range(g) if j != k)
+
+
+@pytest.mark.parametrize("g,rows", [(2, 9), (3, 10), (4, 10), (4, 9), (3, 2)],
+                         ids=lambda v: str(v))
+def test_donated_reduce_scatter_is_the_sum_bit_for_bit(g, rows):
+    """Ragged chunks (9 rows over 4 cells: 3, 3, 3 and an empty last one;
+    2 over 3: 1, 1, 0): every cell's chunk, built in its own part, has the
+    bits of the reduce-scatter that does not donate, and is a view of that
+    part."""
+    parts = _scaled_parts(g, rows, seed=rows)
+    want = p_coll.reduce_scatter_flat([p.clone() for p in parts], ragged=True)
+    got = p_coll.reduce_scatter_flat(parts, ragged=True, donate=True)
+    for c in range(g):
+        assert _same_bits(got[c], want[c]), c
+        assert got[c].untyped_storage().data_ptr() == parts[c].untyped_storage().data_ptr()
+
+
+@pytest.mark.parametrize("n_slow,n_fast,rows", [(2, 2, 16), (2, 2, 7), (2, 3, 16), (2, 3, 5)],
+                         ids=lambda v: str(v))
+def test_donated_two_level_reduce_scatter_is_the_sum_bit_for_bit(n_slow, n_fast, rows):
+    """SU-ALS's two-phase reduction on 2 x 2 and 2 x 3 groups, even and
+    ragged: cell (s, f)'s sub-slice, folded in place into its fast chunk,
+    has the bits of the reduction that does not donate; the phases are
+    entered in order with the bytes they receive."""
+    parts = _scaled_parts(n_slow * n_fast, rows, seed=rows + n_fast)
+    entered = []
+
+    def phase(name, nbytes):
+        entered.append((name, nbytes))
+        return contextlib.nullcontext()
+
+    want = p_coll.two_level_reduce_scatter([p.clone() for p in parts], n_fast, ragged=True)
+    got = p_coll.two_level_reduce_scatter(parts, n_fast, ragged=True, phase=phase, donate=True)
+    total = parts[0].numel() * 4
+    assert entered == [("fast", n_slow * (n_fast - 1) * total), ("slow", (n_slow - 1) * total)]
+    for c in range(n_slow * n_fast):
+        assert _same_bits(got[c], want[c]), c
+        assert got[c].untyped_storage().data_ptr() == parts[c].untyped_storage().data_ptr()
+
+
+NOT_DONATING = {
+    "flat": lambda parts: p_coll.reduce_scatter_flat(parts, ragged=True),
+    "two_level": lambda parts: p_coll.two_level_reduce_scatter(parts, 2, ragged=True),
+    "hierarchical": lambda parts: p_coll.hierarchical_reduce_scatter(parts, 2),
+    "all_reduce": lambda parts: p_coll.all_reduce(parts),
+}
+
+
+@pytest.mark.parametrize("collective", list(NOT_DONATING))
+def test_a_caller_that_does_not_donate_keeps_its_inputs(collective):
+    """Without ``donate`` the inputs are left as they were, and the
+    results are tensors of their own."""
+    parts = _scaled_parts(4, 10, seed=3)
+    before = [p.clone() for p in parts]
+    for t in NOT_DONATING[collective](parts):
+        t.add_(1.0)
+    assert all(_same_bits(p, b) for p, b in zip(parts, before))
 
 
 # ---------------------------------------------------------------------------
