@@ -7,10 +7,10 @@ cells of a ``launch.mesh.Mesh`` (cards, or cells sharing one card).
 - reduce.py      : the same two-phase scheme as a host-scheduled staged
                    reduction (ring within fast domains, tree across them) —
                    combines the streaming drivers' per-data-shard partials;
-- su_als.py      : SU-ALS (paper Alg. 3) over the cells: the resident-shard
-                   half-step ``core.als.als_train_binned(..., mesh=)`` runs,
-                   and the per-wave mesh entry points the out-of-core
-                   drivers dispatch through;
+- su_als.py      : SU-ALS (paper Alg. 3) over the cells: one half-step on
+                   resident column shards, run by ``core.als.als_train_binned
+                   (..., mesh=)`` and by the reference's interface, which the
+                   dry-run and the out-of-core waves use;
 - sharding.py    : the LM's logical-axis policies and ``Sharded``, a tensor
                    laid out as one block a cell (parameters and train
                    states);
@@ -38,7 +38,6 @@ from repro_torch.distributed.su_als import (
     make_wave_update_fn,
     shard_ratings,
     shard_rows,
-    su_als_update,
 )
 
 __all__ = [
@@ -56,6 +55,5 @@ __all__ = [
     "reduce_traffic",
     "shard_ratings",
     "shard_rows",
-    "su_als_update",
     "topology_reduce",
 ]

@@ -31,24 +31,25 @@ streams of their own, both directions of a pair at once, ordered against
 the cards' current streams by events alone and joined back into them
 before each phase of the reduction ends.
 
-Two ways in:
+One engine, :func:`_half`, runs the half-step per bin and q-batch on a
+``sparse.padded.BinnedShards`` layout (rows binned by global degree,
+columns in p shards) that :func:`place_side` has put on the cells.  Its
+interfaces:
 
-- ``core.als.als_train_binned(..., mesh=mesh)``, the port's normal path:
-  each side is a ``sparse.padded.BinnedShards`` (rows binned by global
-  degree, columns in p shards), whose blocks :func:`place_side` uploads
-  once to the cells that own them; :func:`mesh_half` runs one half-step
-  per bin and q-batch on them, and every card keeps a whole copy of both
-  factors (the solved slices are all-gathered), so a cell's block of the
-  fixed factor is a view.  Spans: ``obs/trace.py``'s ``mesh`` category.
-- :func:`make_su_als_fns` on global arrays in the :func:`shard_ratings`
-  layout (the reference's interface, the dry-run's and the out-of-core
-  waves'), staged on the home device and sliced to the cells each call.
+- :func:`mesh_half`, the port's normal path (``core.als.als_train_binned(
+  ..., mesh=mesh)``): layouts placed once, a whole copy of both factors on
+  every card (a cell's block of the fixed factor is a view), the reshard
+  over "data" after each half-step.  Spans: ``obs/trace.py``'s ``mesh``.
+- :func:`make_su_als_fns` and :func:`make_wave_update_fn`, the reference's
+  interface (the dry-run's, the out-of-core waves'): :func:`shard_ratings`
+  arrays taken as one bin and placed each call, the solved rows joined on
+  the home device.  :func:`make_wave_herm_fn` runs step 1 alone.
 """
 from __future__ import annotations
 
 import contextlib
 import functools
-from typing import NamedTuple, Optional, Sequence
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -59,6 +60,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.launch.mesh import Mesh
 from repro_torch.obs.metrics import process_registry
 from repro_torch.obs.trace import current_tracer
+from repro_torch.sparse.padded import BinnedShards
 
 _SYNCS = process_registry().counter("host/syncs")
 
@@ -114,6 +116,12 @@ def _stage(a, mesh: Mesh) -> torch.Tensor:
     return t.to(devs[0]) if len(devs) == 1 else t
 
 
+def _on(device: torch.device):
+    """The device's CUDA context made current (so that the ops' spans time
+    its stream), or nothing for a CPU cell."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
 class RowShards(NamedTuple):
     """A factor's rows split over the column cells: ``blocks[d][k]`` is
     row block k, on the device of cell (data d, column k) — the
@@ -134,49 +142,16 @@ def shard_rows(a, mesh: Mesh) -> RowShards:
                       for devs in column_groups(mesh)])
 
 
-def su_als_update(
-    theta_locs: Sequence[torch.Tensor],   # per cell [n_loc, f] Theta column shard
-    idx_locs: Sequence[torch.Tensor],     # per cell [m_loc, K] shard-local indices
-    val_locs: Sequence[torch.Tensor],     # per cell [m_loc, K]
-    cnt_locs: Sequence[torch.Tensor],     # per cell [m_loc] local nnz counts
-    lam: float,
-    *,
-    col_sizes: tuple[int, ...],           # cuMF p axes' sizes, fast -> slow
-    scheme: str = "two_phase",            # "one_phase" | "two_phase"
-    mode: Optional[Mode] = None,
-    row_block: int = 0,
-    col_axes: tuple[str, ...] = (),       # the p axes' names, fast -> slow (for counting)
-) -> list[torch.Tensor]:
-    """One SU-ALS half-step for the column group of one data shard.
-
-    The lists hold the group's cells in shard order (slow-major).  Returns
-    each cell's ``x_loc [m_loc, f]``, replicated over the group (cells on
-    one device share one tensor).  ``row_block`` > 0 processes rows in
-    blocks of that size (cuMF's m_b batching, Table 3): it bounds the live
-    Hermitians at ``row_block * f^2`` floats a cell; the last block may be
-    short (nothing here needs equal block shapes, as in
-    ``core.als._map_row_blocks``).
-    """
-    if scheme not in ("one_phase", "two_phase"):
-        raise ValueError(f"unknown scheme {scheme!r}")
-    m_loc = idx_locs[0].shape[0]
-    if row_block and row_block < m_loc:
-        blocks = [su_als_update(theta_locs, [i[lo:lo + row_block] for i in idx_locs],
-                                [v[lo:lo + row_block] for v in val_locs],
-                                [c[lo:lo + row_block] for c in cnt_locs], lam,
-                                col_sizes=col_sizes, scheme=scheme, mode=mode,
-                                col_axes=col_axes)
-                  for lo in range(0, m_loc, row_block)]
-        return _per_device([[b[c] for b in blocks] for c in range(len(idx_locs))])
-    # (1) local partial Hermitians — eq. (5)-(7)
-    A, B, cnt = [], [], []
-    for t, i, v, c in zip(theta_locs, idx_locs, val_locs, cnt_locs):
-        Ac, Bc = kops.fused_herm(t, i, v, c, lam, mode=mode, diag_fallback=False)
-        A.append(Ac)
-        B.append(Bc)
-        cnt.append(c.to(torch.float32, copy=True))
-    return _reduce_solve_gather(A, B, cnt, [t.device for t in theta_locs], col_sizes=col_sizes,
-                                col_axes=col_axes, scheme=scheme, mode=mode)
+def _cell_herm(fixed: torch.Tensor, idx, val, cnt, lam: float, dev: torch.device,
+               mode: Optional[Mode]) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Step 1 on one cell, on ``dev``'s stream: the partial Hermitian
+    ``(A, B)`` of its ratings against its block of the fixed factor, with
+    no diagonal fallback (a row empty in this shard may not be empty in
+    all), and its counts as a float32 copy (the reduction folds into what
+    it is given, so never into a caller's counts)."""
+    with _on(dev):
+        A, B = kops.fused_herm(fixed, idx, val, cnt, lam, mode=mode, diag_fallback=False)
+    return A, B, cnt.to(torch.float32, copy=True)
 
 
 def _reduce_solve_gather(A: list, B: list, cnt: list, devs: list, *, col_sizes, col_axes,
@@ -232,22 +207,14 @@ def _reduce_solve_gather(A: list, B: list, cnt: list, devs: list, *, col_sizes, 
         return coll.all_gather(x_slices, 0, axes=col_axes)
 
 
-def _per_device(pieces: list[list[torch.Tensor]]) -> list[torch.Tensor]:
-    """Each cell's row blocks concatenated, one tensor per distinct device."""
-    out: dict[torch.device, torch.Tensor] = {}
-    for blocks in pieces:
-        if blocks[0].device not in out:
-            out[blocks[0].device] = torch.cat(blocks)
-    return [out[blocks[0].device] for blocks in pieces]
-
-
-def _update(fixed: RowShards, idx, val, cnt, mesh: Mesh, lam: float, **kw) -> torch.Tensor:
+def _update(fixed: RowShards, idx, val, cnt, mesh: Mesh, lam: float, *, scheme: str,
+            mode: Optional[Mode], row_block: int) -> torch.Tensor:
     """The SU-ALS half-step on global ratings in the :func:`shard_ratings`
-    layout (idx/val ``[m, P*K]``, cnt ``[m, P]``): every data shard's
-    column group solves its rows; returns the global ``[m, f]`` factor on
-    the mesh's home device.  A data shard whose rows do not split over its
-    p column cells is padded with empty rows, which solve to 0 and are
-    dropped."""
+    layout (idx/val ``[m, P*K]``, cnt ``[m, P]``), taken as one bin of
+    column shards (shard k: the k-th column block and count column; shard
+    k of the fixed factor: its row block k, as :func:`shard_rows` splits)
+    and run by :func:`_half` in q-batches of ``row_block`` rows; returns
+    the global ``[m, f]`` factor on the mesh's home device."""
     idx, val, cnt = (_stage(a, mesh) for a in (idx, val, cnt))
     n_data, p = mesh_axes(mesh)
     m = idx.shape[0]
@@ -255,23 +222,17 @@ def _update(fixed: RowShards, idx, val, cnt, mesh: Mesh, lam: float, **kw) -> to
         raise ValueError(f"ratings {tuple(idx.shape)} do not split over "
                          f"{n_data} data x {p} column shards")
     m_loc, K = m // n_data, idx.shape[1] // p
-    pad = -m_loc % p
-
-    def cell(a, rows, cols, dev):
-        t = a[rows, cols].to(dev)
-        return torch.cat([t, t.new_zeros((pad,) + t.shape[1:])]) if pad else t
-
-    out = []
-    for d, devs in enumerate(column_groups(mesh)):
-        rows = slice(d * m_loc, (d + 1) * m_loc)
-        x_loc = su_als_update(
-            fixed.blocks[d],
-            [cell(idx, rows, slice(k * K, (k + 1) * K), dev) for k, dev in enumerate(devs)],
-            [cell(val, rows, slice(k * K, (k + 1) * K), dev) for k, dev in enumerate(devs)],
-            [cell(cnt, rows, k, dev) for k, dev in enumerate(devs)],
-            lam, col_sizes=col_sizes(mesh), col_axes=col_axes(mesh), **kw)
-        out.append(x_loc[0][:m_loc].to(mesh.home))
-    return torch.cat(out)
+    npp = fixed.blocks[0][0].shape[0]
+    layout = BinnedShards(
+        bins=(tuple((idx[:, k * K:(k + 1) * K], val[:, k * K:(k + 1) * K], cnt[:, k])
+                    for k in range(p)),),
+        rows=(torch.arange(m, device=idx.device),),
+        starts=tuple(k * npp for k in range(p + 1)), n_cols=p * npp, m=m)
+    blocks = [blk for group in fixed.blocks for blk in group]
+    out = _half(blocks, place_side(layout, mesh), mesh, lam, f=blocks[0].shape[1],
+                batch_rows=row_block, scheme=scheme, mode=mode)
+    return torch.cat([out[devs[0]][d * m_loc:(d + 1) * m_loc].to(mesh.home)
+                      for d, devs in enumerate(column_groups(mesh))])
 
 
 def make_su_als_fns(
@@ -377,11 +338,10 @@ def make_wave_herm_fn(mesh: Mesh, lam: float, *, mode: Optional[Mode] = None):
         for d, devs in enumerate(column_groups(mesh)):
             for k, dev in enumerate(devs):
                 rows = slice(k * npp, (k + 1) * npp)
-                # diag_fallback=False: a locally empty theta row may be
-                # nonempty globally — the guard follows the topology reduce
-                Ac, Bc = kops.fused_herm(
-                    x_stack[d].to(dev), idxT[d, rows].to(dev), valT[d, rows].to(dev),
-                    cntT[d, rows].to(dev), lam, mode=mode, diag_fallback=False)
+                # the singular guard follows the topology reduce
+                Ac, Bc, _ = _cell_herm(x_stack[d].to(dev), idxT[d, rows].to(dev),
+                                       valT[d, rows].to(dev), cntT[d, rows].to(dev), lam, dev,
+                                       mode)
                 A[d, rows] = Ac.cpu().numpy()
                 B[d, rows] = Bc.cpu().numpy()
                 del Ac, Bc
@@ -403,14 +363,8 @@ def shard_ratings(ell_parts, mesh: Mesh):
 
 
 # ---------------------------------------------------------------------------
-# The normal path: binned column shards resident on the cells
+# The engine: binned column shards resident on the cells
 # ---------------------------------------------------------------------------
-
-def _on(device: torch.device):
-    """The device's CUDA context made current (so that the ops' spans time
-    its stream), or nothing for a CPU cell."""
-    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
-
 
 class MeshSide(NamedTuple):
     """One side's ratings (R or R^T) resident on the cells of a mesh.
@@ -499,28 +453,41 @@ def mesh_nnz(side: MeshSide, batch_rows: int) -> list[list[list[int]]]:
 def mesh_half(fixed: dict, side: MeshSide, mesh: Mesh, lam: float, *, f: int,
               batch_rows: int = 0, mode: Optional[Mode] = None, nnz=None) -> dict:
     """One SU-ALS half-step on resident shards: solves every row of ``side``
-    against ``fixed`` ({device: the whole fixed factor}), per bin and
-    q-batch of ``batch_rows`` rows: (1) each cell's partial Hermitian from
-    its shard and its block of the fixed factor, then for each column
-    group (2) the reduction, (3) the solve of the slice each cell owns,
-    with the singular guard for rows empty in every shard, (4) the
-    all-gather of the slices (:func:`_reduce_solve_gather`), and the rows
-    scattered into the new factor by the bin's row map on every device of
-    the group.  A mesh with a data axis then all-gathers each part's rows
-    over it (the reshard), so that every device holds the whole new
-    factor, returned as {device: factor}.  ``nnz`` (:func:`mesh_nnz`)
-    gives the ``su_als.bin`` spans' ratings."""
+    against ``fixed`` ({device: the whole fixed factor}) by :func:`_half`,
+    whose reduction the mesh's column axes decide (two-level over a pod
+    axis, one-phase without one); a mesh with a data axis then all-gathers
+    each part's rows over it (the reshard), so that every device holds the
+    whole new factor, returned as {device: factor}.  ``nnz``
+    (:func:`mesh_nnz`) gives the ``su_als.bin`` spans' ratings."""
+    p = len(side.starts) - 1
+    blocks = [fixed[dev][side.starts[c % p]:side.starts[c % p + 1]]
+              for c, dev in enumerate(dev for g in column_groups(mesh) for dev in g)]
+    out = _half(blocks, side, mesh, lam, f=f, batch_rows=batch_rows, scheme="two_phase",
+                mode=mode, nnz=nnz)
+    _reshard(out, side, mesh, mesh.distinct_devices)
+    return out
+
+
+def _half(fixed_blocks: list, side: MeshSide, mesh: Mesh, lam: float, *, f: int,
+          batch_rows: int, scheme: str, mode: Optional[Mode], nnz=None) -> dict:
+    """The SU-ALS half-step, without the reshard: per bin and q-batch of
+    ``batch_rows`` rows, (1) each cell's partial Hermitian from its shard
+    and ``fixed_blocks[c]``, its block of the fixed factor, then for each
+    column group (2) the reduction (``scheme`` "two_phase" | "one_phase"),
+    (3) the solve of the slice each cell owns, with the singular guard for
+    rows empty in every shard, (4) the all-gather of the slices
+    (:func:`_reduce_solve_gather`), and the rows scattered by the bin's
+    row map into every device of the group.  Returns {device: [m, f]},
+    each device holding the rows of the groups it serves."""
+    if scheme not in ("one_phase", "two_phase"):
+        raise ValueError(f"unknown scheme {scheme!r}")
     tracer = current_tracer()
     groups = column_groups(mesh)
     p = len(groups[0])
     devs = [dev for g in groups for dev in g]
     cards = mesh.distinct_devices
-    # the mesh's column axes decide the reduction: two-level over a pod
-    # axis, one-phase without one
-    kw = dict(col_sizes=col_sizes(mesh), col_axes=col_axes(mesh), scheme="two_phase",
-              mode=mode, cards=cards)
-    fixed_blocks = [fixed[dev][side.starts[c % p]:side.starts[c % p + 1]]
-                    for c, dev in enumerate(devs)]
+    kw = dict(col_sizes=col_sizes(mesh), col_axes=col_axes(mesh), scheme=scheme, mode=mode,
+              cards=cards)
     out = {dev: torch.zeros((side.m, f), dtype=torch.float32, device=dev) for dev in cards}
     for b, batches in enumerate(mesh_batches(side, batch_rows)):
         for q, parts in enumerate(batches):
@@ -538,13 +505,12 @@ def mesh_half(fixed: dict, side: MeshSide, mesh: Mesh, lam: float, *, f: int,
                     for d, (lo, hi) in local.items():
                         A, B, C = [], [], []
                         for c in range(d * p, (d + 1) * p):
-                            idx, val, cnt = (t[lo:hi] for t in side.blocks[b][c])
-                            with _on(devs[c]):
-                                Ac, Bc = kops.fused_herm(fixed_blocks[c], idx, val, cnt, lam,
-                                                         mode=mode, diag_fallback=False)
+                            Ac, Bc, Cc = _cell_herm(fixed_blocks[c],
+                                                    *(t[lo:hi] for t in side.blocks[b][c]),
+                                                    lam, devs[c], mode)
                             A.append(Ac)
                             B.append(Bc)
-                            C.append(cnt.to(torch.float32))
+                            C.append(Cc)
                         herm[d] = (A, B, C)
                 solved = {d: _reduce_solve_gather(*herm.pop(d), devs[d * p:(d + 1) * p], **kw)
                           for d in list(herm)}
@@ -552,7 +518,6 @@ def mesh_half(fixed: dict, side: MeshSide, mesh: Mesh, lam: float, *, f: int,
                     for d, (lo, hi) in local.items():
                         for dev, x in zip(devs[d * p:(d + 1) * p], solved[d]):
                             out[dev].index_copy_(0, side.rows[b][d][dev][lo:hi], x)
-    _reshard(out, side, mesh, cards)
     return out
 
 

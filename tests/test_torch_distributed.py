@@ -352,6 +352,65 @@ def test_su_als_row_block_matches(problem, mesh_name, row_block):
     np.testing.assert_allclose(tb.numpy(), ta.numpy(), atol=BLOCK_TOL, rtol=0)
 
 
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+def test_su_als_fns_run_the_mesh_engine(problem, mesh_name):
+    """``make_su_als_fns`` runs the engine of ``als_train_binned(mesh=)``:
+    its ``su_als.bin`` and ``su_als.herm`` spans, the reductions nested in
+    the bins with the mesh's phases; per q-batch and data group 3
+    reductions (A, B, counts), each a reduce-scatter per group of cells
+    of each phase, and one all-gather over the column cells, none over
+    "data"; the results bit-equal to an untraced run; float32 counts
+    handed in left as they were."""
+    from repro_torch.obs import Tracer
+    from repro_torch.obs.metrics import process_registry
+    from repro_torch.obs.trace import set_tracer
+
+    _, _, init, _ = problem
+    mesh = _cpu_mesh(mesh_name)
+    rdev, rtdev = _sharded(problem, mesh)
+    rdev = rdev[:2] + (rdev[2].to(torch.float32),)
+    cnt = rdev[2].clone()
+    row_block = 100
+    _, _, it = su_als.make_su_als_fns(mesh, 0.05, row_block=row_block, mode="ref")
+    want = it(init[0], init[1], rdev, rtdev)
+
+    def calls():
+        c = process_registry().snapshot()["counters"]
+        return [c.get(f"collective/{k}/calls", 0) for k in ("reduce_scatter", "all_gather")]
+
+    tracer = Tracer()
+    prev = set_tracer(tracer)
+    before = calls()
+    try:
+        with p_coll.counting(mesh.size, dict(mesh.shape)) as ctr:
+            got = it(init[0], init[1], rdev, rtdev)
+    finally:
+        set_tracer(prev)
+    after = calls()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(rdev[2], cnt)
+    n_data, p = su_als.mesh_axes(mesh)
+    batches = sum(-(-(rows // n_data) // row_block) for rows in (len(init[0]), len(init[1])))
+    spans = tracer.spans()
+    name_of = {s.id: s.name for s in spans}
+    assert sum(s.name == "su_als.bin" for s in spans) == batches
+    assert sum(s.name == "su_als.herm" for s in spans) == batches
+    for s in spans:
+        if s.name in ("su_als.herm", "su_als.reduce", "su_als.solve", "su_als.gather",
+                      "als.scatter"):
+            assert name_of[s.parent] == "su_als.bin", s
+    sizes = su_als.col_sizes(mesh)
+    two_phase = len(sizes) > 1
+    phases = {s.args["phase"] for s in spans if s.name == "su_als.reduce"}
+    assert phases == ({"fast", "slow"} if two_phase else {"flat"})
+    per_reduction = sum(sizes) if two_phase else 1    # fast: n_slow groups, slow: n_fast
+    assert after[0] - before[0] == 3 * batches * n_data * per_reduction
+    assert after[1] - before[1] == batches * n_data
+    gathers = [r for r in ctr.records if r.kind == "all-gather"]
+    assert len(gathers) == batches * n_data
+    assert all("data" not in r.axes for r in ctr.records)
+
+
 def test_wave_entry_points_match_single_device(problem):
     """``make_wave_update_fn`` against the reference's single-device
     ``update_rows``; ``make_wave_herm_fn``'s per-data-shard partials,
@@ -368,7 +427,7 @@ def test_wave_entry_points_match_single_device(problem):
                                         r_tr.cnt[rows], rcfg))
     assert isinstance(got, np.ndarray)
     np.testing.assert_allclose(got, want, atol=SU_TOL, rtol=0)
-    # 2 x 238 rows: each data shard padded to a multiple of its 4 column cells
+    # 2 x 238 rows: a data shard's rows do not split evenly over its 4 column cells
     rows = slice(0, 476)
     parts = p_padded.partition_padded(p_padded.PaddedELL(
         r_tr.idx[rows], r_tr.val[rows], r_tr.cnt[rows], r_tr.n_cols), 4)
