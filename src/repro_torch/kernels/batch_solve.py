@@ -2,7 +2,8 @@
 
 Replaces the reference's Pallas kernel ``repro/kernels/batch_solve.py``
 ``batch_solve_pallas``: a blocked Cholesky with the right-hand side
-carried as one more row, one CTA per system, no padding of the batch:
+carried as one more row, one warp per system and several systems a CTA
+(``budgets.solve_systems_per_cta``), no padding of the batch:
 empty rows already arrive as A = I (``ops.fused_herm``'s
 ``diag_fallback`` and ``core.als.solve_accumulated``'s guard).
 

@@ -16,17 +16,21 @@ launched (``smem/<kernel>``):
   staged ``A_u`` and ``B_u`` of the epilogue (``f * (f + 1)`` floats),
   whichever is larger.  The split path's reduction kernel stages the same
   ``f * (f + 1)`` floats, so it never needs more.
-- ``batch_solve`` (``csrc/batch_solve.cu`` ``smem_floats(f)``): the
-  transposed panel (``kNB`` rows of ``pw = 4 * ceil((f + 1) / 4)``
-  floats), the packed lower triangle of ``A_u`` with ``b_u``, and three
-  vectors of ``f``.
+- ``batch_solve`` (``csrc/batch_solve.cu`` ``batch_solve_smem_bytes(f)``):
+  :func:`solve_systems_per_cta` systems, one a warp, each holding the lower
+  triangle of ``W = [A_u ; b_u^T]`` in 4x4 blocks, block-row ``a`` (rows
+  ``4a..4a+3``) of ``a + 1`` blocks and one float4 of padding, for block-rows
+  ``0..f // 4``: ``16 * a (2a + 3)`` bytes with ``a = f // 4 + 1``, then two
+  buffers of ``SOLVE_NB`` floats.  A CTA
+  takes as many systems as fit in ``SOLVE_CTA_SMEM`` (half an SM's shared
+  memory, less a CTA's reserve), at most ``SOLVE_MAX_SYS``.
 
 The SGD tile kernel (``csrc/sgd_update.cu``) and the squared error
 (``csrc/sq_err.cu``) keep their rows in registers and use no dynamic
 shared memory, so they have no entry: their libraries are declared in
 :data:`SMEM_FREE`.  Worst case under the declared bound
-f <= 128: 66048 B for the Hermitians, 43520 B for the solve, both far
-under the limit.
+f <= 128: 66048 B for the Hermitians, 115040 B for the solve (five
+systems of 23008 B at f = 100 to 103), both under the limit.
 
 Nothing here is read from the CUDA sources at run time, so the constants
 the footprints rest on are copies.  :data:`MIRRORS` declares each copy
@@ -47,12 +51,16 @@ SMEM_BYTES = 227 * 1024
 # constants of the CUDA sources the footprints mirror
 HERM_CHUNK = 32          # kChunk, csrc/herm_tile.cuh
 SOLVE_NB = 16            # kNB, csrc/batch_solve.cu
+SOLVE_MAX_SYS = 5        # kMaxSys, csrc/batch_solve.cu
+SOLVE_CTA_SMEM = 115712  # kCtaSmem, csrc/batch_solve.cu
 
 #: Python copies of the CUDA sources' constants: (module in ``kernels/``,
 #: its module-level constant, source in ``kernels/csrc/``, the constexpr)
 MIRRORS = (
     ("budgets.py", "HERM_CHUNK", "herm_tile.cuh", "kChunk"),
     ("budgets.py", "SOLVE_NB", "batch_solve.cu", "kNB"),
+    ("budgets.py", "SOLVE_MAX_SYS", "batch_solve.cu", "kMaxSys"),
+    ("budgets.py", "SOLVE_CTA_SMEM", "batch_solve.cu", "kCtaSmem"),
     ("hermitian.py", "MAX_F", "herm_tile.cuh", "kMaxF"),
     ("batch_solve.py", "MAX_F", "batch_solve.cu", "kMaxF"),
     ("sgd_update.py", "MAX_F", "sgd_update.cu", "kMaxF"),
@@ -82,10 +90,21 @@ def _herm_smem(f: int) -> int:
     return max(chunks, staged)
 
 
+def solve_system_bytes(f: int) -> int:
+    """Shared memory one system of the solve takes at ``f``: W's blocks and
+    two buffers of ``SOLVE_NB`` floats."""
+    a = f // 4 + 1
+    return 16 * a * (2 * a + 3) + 2 * 4 * SOLVE_NB
+
+
+def solve_systems_per_cta(f: int) -> int:
+    """Systems (warps) one CTA of the solve takes at ``f``: the
+    ``batch_solve_systems_per_cta(f)`` of ``csrc/batch_solve.cu``."""
+    return max(1, min(SOLVE_MAX_SYS, SOLVE_CTA_SMEM // solve_system_bytes(f)))
+
+
 def _solve_smem(f: int) -> int:
-    pw = (f + 1 + 3) // 4 * 4
-    tri = f * (f + 1) // 2
-    return 4 * (pw * SOLVE_NB + (tri + f + 3) // 4 * 4 + 3 * f)
+    return solve_systems_per_cta(f) * solve_system_bytes(f)
 
 
 def footprint_bytes(name: str, *, f: int) -> int:
@@ -112,6 +131,7 @@ BUDGETS: dict[str, KernelBudget] = {
     "batch_solve": KernelBudget(
         smem_limit=SMEM_BYTES, dim_bounds={"f": 128}, library="batch_solve",
         source="batch_solve.cu",
-        note="csrc/batch_solve.cu smem_floats(f): transposed panel, packed "
-             "triangle with b, three vectors"),
+        note="csrc/batch_solve.cu batch_solve_smem_bytes(f): "
+             "solve_systems_per_cta(f) systems, each W's lower triangle in "
+             "4x4 blocks with a float4 of padding a block-row"),
 }

@@ -20,3 +20,18 @@ __device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\
 __device__ inline void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
+
+// The same copies with a source size: the first src_bytes (0 to the copy's
+// size) are read, the rest of the destination is filled with zeros, and
+// with src_bytes 0 nothing is read.
+__device__ inline void cp_async16_zfill(void* dst, const void* src, int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(src_bytes));
+}
+
+__device__ inline void cp_async4_zfill(void* dst, const void* src, int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(src_bytes));
+}

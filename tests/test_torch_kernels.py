@@ -18,7 +18,7 @@ from repro.kernels import ref as ref_kref  # noqa: E402
 from repro.kernels.hermitian import herm_hbm_accum as ref_herm_hbm_accum  # noqa: E402
 from repro_torch.kernels import batch_solve as port_solve  # noqa: E402
 from repro_torch.core import objective as port_obj  # noqa: E402
-from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import budgets, build  # noqa: E402
 from repro_torch.kernels import hermitian as port_herm  # noqa: E402
 from repro_torch.kernels import ops as port_ops  # noqa: E402
 from repro_torch.kernels import ref as port_ref  # noqa: E402
@@ -236,6 +236,35 @@ def test_batch_solve_blocked_plain_clamps_like_the_reference(nb):
     np.testing.assert_allclose(x0[:, 5], 1e10, rtol=1e-3)
     x1 = port_ref.batch_solve_blocked_plain(*_t(A, B), nb).numpy()
     np.testing.assert_allclose(x1, x0, atol=5e-4, rtol=5e-4)
+
+
+def _solve_system_floats(f):
+    """The solve's layout counted block by block: block-rows 0..f // 4 of
+    W = [A_u ; b_u^T], block-row a of a + 1 4x4 blocks and 4 floats of
+    padding, then two buffers of 16 floats."""
+    return sum(16 * (a + 1) + 4 for a in range(f // 4 + 1)) + 2 * 16
+
+
+@pytest.mark.parametrize("f", range(1, port_solve.MAX_F + 1))
+def test_solve_footprint_is_its_block_layout(f):
+    spc = budgets.solve_systems_per_cta(f)
+    assert 1 <= spc <= budgets.SOLVE_MAX_SYS
+    assert budgets.solve_system_bytes(f) == 4 * _solve_system_floats(f)
+    assert budgets.footprint_bytes("batch_solve", f=f) == spc * 4 * _solve_system_floats(f)
+    assert budgets.footprint_bytes("batch_solve", f=f) <= budgets.SOLVE_CTA_SMEM
+    assert budgets.footprint_bytes("batch_solve", f=f) <= budgets.SMEM_BYTES
+    # no larger CTA of the same systems fits beside another
+    assert spc == budgets.SOLVE_MAX_SYS or \
+        (spc + 1) * budgets.solve_system_bytes(f) > budgets.SOLVE_CTA_SMEM
+
+
+def test_solve_fits_ten_systems_an_sm_at_f100():
+    """At most 24 KB a system at f = 100, and two CTAs of five, each with
+    the 1 KB a CTA reserves, in an SM's 228 KB: 10 systems an SM."""
+    per_system = budgets.solve_system_bytes(100)
+    assert per_system <= 24 * 1024 and 228 * 1024 // per_system >= 9
+    assert budgets.solve_systems_per_cta(100) == 5
+    assert 2 * (budgets.footprint_bytes("batch_solve", f=100) + 1024) <= 228 * 1024
 
 
 def _sq_err_before(x, theta, idx, val, cnt, gather_elems=1 << 26):

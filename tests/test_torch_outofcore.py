@@ -241,12 +241,12 @@ def test_sgd_schedule_and_tiles_match_reference(problem, g, n_workers, per_tile_
 
 
 def test_budgets_mirror_the_launch_configs():
-    # csrc/herm_tile.cuh smem_bytes(f) and csrc/batch_solve.cu smem_floats(f)
+    # csrc/herm_tile.cuh smem_bytes(f) and csrc/batch_solve.cu batch_solve_smem_bytes(f)
     assert budgets.footprint_bytes("fused_herm", f=100) == 40400      # staged A, B
     assert budgets.footprint_bytes("fused_herm", f=8) == 2 * 32 * (16 * 4 + 4)
     assert budgets.footprint_bytes("fused_herm", f=128) == 66048
-    assert budgets.footprint_bytes("batch_solve", f=100) == 4 * (104 * 16 + 5152 + 300)
-    assert budgets.footprint_bytes("batch_solve", f=128) == 43520
+    assert budgets.footprint_bytes("batch_solve", f=100) == 5 * (16 * 26 * 55 + 128)   # 5 systems
+    assert budgets.footprint_bytes("batch_solve", f=128) == 3 * (16 * 33 * 69 + 128)   # 3 systems
     for name, b in budgets.BUDGETS.items():
         assert budgets.footprint_bytes(name, f=b.dim_bounds["f"]) <= b.smem_limit
     assert budgets.SMEM_BYTES == 227 * 1024
